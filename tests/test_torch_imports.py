@@ -1,0 +1,129 @@
+"""Import hygiene and device defaults of the port.
+
+* ``repro_torch`` imports with ``jax`` blocked, and no module under
+  ``src/repro_torch`` imports ``jax`` or anything of ``repro``;
+* entry points default to CUDA and raise when none is present (no CPU
+  fallback); ``device="cpu"`` is the explicit plain path;
+* ``chip_smoke.py`` exits non-zero and prints no result without CUDA;
+* the CUDA sources ship with the package and build under the ignored
+  ``build/`` directory.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import DeepMappingConfig, DeepMappingStore, InferenceEngine, KeyEncoder
+from repro_torch.core import model as tmodel
+from repro_torch.data.tpch import orders_like
+from repro_torch.kernels import fused_mlp as fm
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+MODULES = sorted(PKG.rglob("*.py"))
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", MODULES, ids=[str(p.relative_to(PKG)) for p in MODULES])
+def test_module_imports_neither_jax_nor_repro(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+
+
+def test_import_with_jax_blocked():
+    mods = [
+        "repro_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in MODULES if p.name != "__init__.py"
+    ]
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib, repro_torch\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'repro' or m.startswith(('repro.', 'jax.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _small():
+    table = orders_like(500, seed=0)
+    enc = KeyEncoder(table.max_key)
+    spec = tmodel.MLPSpec(10, enc.width, (16,), {c: (8,) for c in table.columns},
+                          {c: len(np.unique(v)) for c, v in table.columns.items()})
+    return table, enc, spec, tmodel.init_params(spec, device="cpu")
+
+
+class TestDeviceDefaults:
+    def test_build_without_device_raises(self, no_cuda):
+        table, _, spec, params = _small()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DeepMappingStore.build(table, DeepMappingConfig(), spec=spec, params=params)
+
+    def test_engine_without_device_raises(self, no_cuda):
+        _, enc, spec, params = _small()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            InferenceEngine(enc, spec, params)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            InferenceEngine(enc, spec, params, device="cuda")
+
+    def test_init_params_without_device_raises(self, no_cuda):
+        _, _, spec, _ = _small()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tmodel.init_params(spec)
+
+    def test_cpu_is_explicit(self):
+        table, enc, spec, params = _small()
+        store = DeepMappingStore.build(table, DeepMappingConfig(), spec=spec, params=params,
+                                       device="cpu")
+        assert store.device.type == "cpu" and store.engine.device.type == "cpu"
+        _, exists = store.lookup(table.keys[:10])
+        assert exists.all()
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a GPU the script exits non-zero before any result; alone
+    in a directory (no ``src/``) it cannot import the port either."""
+    script = (ROOT / "chip_smoke.py").read_text()
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(script)
+    for path in (ROOT / "chip_smoke.py", lone):
+        out = subprocess.run([sys.executable, str(path)], capture_output=True, text=True,
+                             cwd=path.parent, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_cuda_sources_ship_and_build_dir_is_ignored():
+    assert fm.CSRC.exists() and fm.CSRC.parent.name == "csrc"
+    text = (ROOT / "pyproject.toml").read_text()
+    assert "repro_torch" in text and "csrc/*.cu" in text
+    rel = fm.build_dir().resolve().relative_to(ROOT)
+    assert rel.parts[0] == "build"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert "-gencode" in fm.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in fm.NVCC_FLAGS
