@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--rows N]
+    python3 chip_smoke.py [--seed N]
 
 Drives the port's main path at full width and holds every CUDA kernel
 on that path against its plain PyTorch version on the card:
@@ -49,6 +49,8 @@ PEAK_BYTES_PER_S = 3.35e12
 #: may differ only where the plain side's top-two margin is below this.
 LOGIT_TOL = 1e-5
 MARGIN_TOL = 1e-5
+#: TPC-H ``orders`` rows at scale factor 1.
+ROWS = 1_500_000
 
 RECORD: dict = {}
 
@@ -67,8 +69,6 @@ def check(cond: bool, msg: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--rows", type=int, default=1_500_000,
-                    help="orders rows (default: TPC-H SF1, 1.5 M)")
     args = ap.parse_args()
 
     import numpy as np
@@ -117,7 +117,7 @@ def main() -> int:
     )
 
     # The slice's full width: TPC-H orders at SF1, the paper's store.
-    table = orders_like(args.rows, seed=args.seed)
+    table = orders_like(ROWS, seed=args.seed)
     config = DeepMappingConfig(
         base=10, codec="zstd", partition_bytes=4 * 1024 * 1024,
         shared=(256, 256), private=(64,),

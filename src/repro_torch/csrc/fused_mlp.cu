@@ -476,16 +476,6 @@ extern "C" {
 
 const char* repro_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Rows per block the kernels would use for this model (0: does not fit).
-int repro_tile_rows(int hstride, int width, int n_heads) {
-  Model m;
-  m.hstride = hstride;
-  m.width = width;
-  m.n_heads = n_heads;
-  size_t bytes = 0;
-  return pick_tile(m, &bytes);
-}
-
 int repro_fused_lookup(const long long* w_ptrs, const long long* b_ptrs, const int* layer_info,
                        int n_layers, int n_trunk, const int* head_info, int n_heads, int width,
                        int base, int base_pad, int hstride, const void* keys, int n,

@@ -108,8 +108,6 @@ def library() -> ctypes.CDLL:
         lib.repro_fused_lookup.restype = i
         lib.repro_fused_mlp.argtypes = model + [p, i, i, p, p, p]
         lib.repro_fused_mlp.restype = i
-        lib.repro_tile_rows.argtypes = [i, i, i]
-        lib.repro_tile_rows.restype = i
         lib.repro_error_string.argtypes = [i]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -182,12 +180,7 @@ class _ModelArgs:
         self.base_pad = base_pad
         self.hstride = _round_up(max(widths, default=4), 4)
 
-    def args(self, lib: ctypes.CDLL) -> list:
-        if lib.repro_tile_rows(self.hstride, self.width, self.n_heads) == 0:
-            raise ValueError(
-                f"hidden width {self.hstride} leaves no activation tile that fits "
-                f"the 227 KB of shared memory a block may use"
-            )
+    def args(self) -> list:
         return [
             self.w_ptrs.ctypes.data, self.b_ptrs.ctypes.data, self.info.ctypes.data,
             self.n_layers, self.n_trunk, self.heads.ctypes.data, self.n_heads,
@@ -205,12 +198,23 @@ def _check(t: Optional[torch.Tensor], name: str, dev: torch.device, dtype, ndim:
         )
 
 
-def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{what} kernel launch failed: CUDA error {err} "
-            f"({lib.repro_error_string(err).decode()})"
-        )
+#: What the C entries return when they refuse a model before launching.
+#: The Python checks rule out the other causes (layer, head and predicate
+#: counts), which leaves an activation tile too large for shared memory.
+_CUDA_ERROR_INVALID_VALUE = 1
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str, margs: _ModelArgs) -> None:
+    if err == 0:
+        return
+    hint = ""
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        hint = (f"; hidden width {margs.hstride} may leave no activation tile that "
+                f"fits the 227 KB of shared memory a block may use")
+    raise RuntimeError(
+        f"{what} kernel launch failed: CUDA error {err} "
+        f"({lib.repro_error_string(err).decode()}){hint}"
+    )
 
 
 def fused_mlp_call(
@@ -253,12 +257,12 @@ def fused_mlp_call(
         logit_ptrs = np.array([t.data_ptr() for t in logits], np.int64)
     with torch.cuda.device(dev):
         err = lib.repro_fused_mlp(
-            *margs.args(lib), digits.data_ptr(), n, int(emit_codes),
+            *margs.args(), digits.data_ptr(), n, int(emit_codes),
             codes.data_ptr() if codes is not None else None,
             logit_ptrs.ctypes.data if logit_ptrs is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(err, lib, "fused_mlp")
+    _raise_on(err, lib, "fused_mlp", margs)
     fused_mlp_call.launches += 1
     return codes if emit_codes else logits
 
@@ -326,7 +330,7 @@ def fused_lookup_call(
     pred_idx = np.array(list(pred_tasks) or [0], np.int32)
     with torch.cuda.device(dev):
         err = lib.repro_fused_lookup(
-            *margs.args(lib), keys.data_ptr(), n, pos_ops.data_ptr(), int(capacity),
+            *margs.args(), keys.data_ptr(), n, pos_ops.data_ptr(), int(capacity),
             words32.data_ptr() if with_exists else None,
             words32.shape[0] if with_exists else 0, int(with_exists),
             pred_ptrs.ctypes.data, pred_idx.ctypes.data, len(pred_tables),
@@ -334,7 +338,7 @@ def fused_lookup_call(
             match.data_ptr() if match is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(err, lib, "fused_lookup")
+    _raise_on(err, lib, "fused_lookup", margs)
     fused_lookup_call.launches += 1
     return codes, exists, match
 

@@ -275,16 +275,9 @@ def fused_lookup(
     0/1 code tables; ``pred_tasks[j]`` names the head whose code indexes
     table ``j``; match bits are the existence bit ANDed with every
     table lookup, so predicate filtering requires ``with_exists``."""
-    if keys_i32.shape[0] % tile_n != 0:
-        raise ValueError(
-            f"padded batch size {keys_i32.shape[0]} must be a multiple of "
-            f"tile_n={tile_n}"
-        )
-    if pred_tables and not with_exists:
-        raise ValueError("in-kernel predicate filtering requires with_exists")
     return fm_kernel.fused_lookup_call(
-        keys_i32, pos_ops, words32 if with_exists else None,
-        tuple(flat_weights), spec, tile_n, _round_up(spec.base, LANE),
+        keys_i32, pos_ops, words32, tuple(flat_weights), spec, tile_n,
+        _round_up(spec.base, LANE),
         int(capacity), pred_tables=tuple(pred_tables),
         pred_tasks=tuple(pred_tasks), with_exists=with_exists,
     )
