@@ -12,11 +12,11 @@ A :class:`DeepMappingStore` owns:
                          (``f_decode``);
 * ``encoder``          — digit featurizer for keys.
 
-Eq. 1 of the paper is :meth:`compression_ratio`.  In this slice a store
-is built from given weights (``spec`` + ``params``); training, save/load
-and the query layer come with later slices, and the store is a plain
-class (the reference's ``MappingStore`` protocol comes with the query
-layer).
+Eq. 1 of the paper is :meth:`compression_ratio`.  A store is built by
+training a model on the table, or from given weights (``spec`` +
+``params``); save/load and the query layer come with later slices, and
+the store is a plain class (the reference's ``MappingStore`` protocol
+comes with the query layer).
 """
 
 from __future__ import annotations
@@ -152,16 +152,13 @@ class DeepMappingStore:
         verbose: bool = False,
         device: DeviceLike = None,
     ) -> "DeepMappingStore":
-        """Assemble the hybrid from given weights: ``spec`` + ``params``
-        (a params tree of tensors or numpy arrays in the reference
-        layout).  Training a model here comes with the trainer slice
-        (M2); without weights this raises."""
+        """Train (or accept) a mapping model and assemble the hybrid, on
+        ``device``.
+
+        Passing ``spec``+``params`` (a params tree of tensors or numpy
+        arrays in the reference layout) skips training; ``spec`` alone
+        trains that architecture."""
         dev = resolve_device(device)
-        if spec is None or params is None:
-            raise ValueError(
-                "DeepMappingStore.build needs spec= and params= in this port: "
-                "training (ROADMAP M2) is not ported yet"
-            )
         residues = config.residues
         if config.auto_residues:
             from repro_torch.core.encoding import detect_residues
@@ -173,13 +170,28 @@ class DeepMappingStore:
                 print(f"[build] auto-detected residue periods: {residues}")
         encoder = KeyEncoder(table.max_key, base=config.base, residues=residues)
         codecs = build_codecs(table.columns)
-        if spec.width != encoder.width or spec.base != encoder.base:
+        if spec is None:
+            spec = MLPSpec(
+                base=config.base,
+                width=encoder.width,
+                shared=tuple(config.shared),
+                private={n: tuple(config.private) for n in table.columns},
+                out_cards={n: codecs[n].cardinality for n in table.columns},
+                dtype=config.dtype,
+            )
+        elif spec.width != encoder.width or spec.base != encoder.base:
             raise ValueError(
                 f"spec (base {spec.base}, width {spec.width}) does not match the "
                 f"table's key encoder (base {encoder.base}, width {encoder.width})"
             )
-        params = model_lib._map_tree(params, lambda a: torch.as_tensor(a).to(dev))
         codes = np.stack([codecs[t].codes for t in spec.tasks], axis=1)
+        if params is None:
+            params, _, hist = trainer_lib.train(
+                spec, encoder.digits(table.keys), codes, config.train, device=dev
+            )
+            if verbose:
+                print(f"[build] trained {len(hist)} epochs, final loss {hist[-1]:.5f}")
+        params = model_lib._map_tree(params, lambda a: torch.as_tensor(a).to(dev))
         # Misclassification evaluation runs through the SAME engine that
         # will serve lookups, so T_aux always corrects exactly the
         # deployed model; the warm weight cache is adopted below.

@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
@@ -229,17 +230,28 @@ def _leaves(tree: Dict):
         yield head["out"]["b"]
 
 
+def _with_leaves(tree: Dict, values) -> Dict:
+    """A tree of ``tree``'s layout whose leaves are ``values``, given in
+    :func:`_leaves` order."""
+    index = {id(t): v for t, v in zip(_leaves(tree), values, strict=True)}
+    return _map_tree(tree, lambda t: index[id(t)])
+
+
 def _apply(layer: Dict, x: Optional[torch.Tensor], digits: torch.Tensor) -> torch.Tensor:
     w = layer["w"]
     if w.dim() == 3:
         # Gather path: rows selected by digit codes, summed in position
-        # order (the order the fused kernels use), then the bias.
+        # order (the order the fused kernels use), then the bias.  The
+        # gather is F.embedding because its backward reduces the many
+        # repeats of each digit by sorting them into segments; advanced
+        # indexing's backward adds the repeats one after another and took
+        # most of a training step's device time on the H100.
         if x is not None:
             raise ValueError("rank-3 layer must be first from input")
         idx = digits.long()
-        acc = w[0][idx[:, 0]]
+        acc = F.embedding(idx[:, 0], w[0])
         for p in range(1, w.shape[0]):
-            acc = acc + w[p][idx[:, p]]
+            acc = acc + F.embedding(idx[:, p], w[p])
         return acc + layer["b"]
     return x @ w + layer["b"]
 

@@ -1,4 +1,4 @@
-"""Build, bind and launch the fused CUDA kernels (``csrc/fused_mlp.cu``).
+"""Bind and launch the fused CUDA kernels (``csrc/fused_mlp.cu``).
 
 Two entry points share the kernel source's one device forward:
 
@@ -11,107 +11,43 @@ Two entry points share the kernel source's one device forward:
 For tensors on the card each call launches its CUDA kernel or raises;
 for tensors on the CPU it runs the plain version in
 ``repro_torch.kernels.ref``.  There is no fallback between the two:
-a build or launch failure raises.
-
-The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``, under
-``build/repro_torch_kernels/`` at the root of the checkout
-(``REPRO_TORCH_BUILD_DIR`` overrides).  The library's file name carries
-a hash of the source and flags, so an edited source is rebuilt.  Each
-call function counts its launches in ``<function>.launches``.
+a build or launch failure raises.  The source is built at first use by
+``repro_torch.kernels.build``.  Each call function counts its launches
+in ``<function>.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.model import MLPSpec
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc" / "fused_mlp.cu"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = "fused_mlp.cu"
 #: Kernel limits fixed by the C interface's by-value model descriptor.
 MAX_LAYERS = 64
 MAX_HEADS = 32
 MAX_PREDS = 8
 
-#: What the last build did: seconds (None when the library was cached),
-#: the library path and nvcc's output (``-Xptxas -v``: registers, spills).
-BUILD_INFO: dict = {"seconds": None, "path": None, "log": ""}
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
-
-
-def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR", "").strip()
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
-        cand = Path(root) / "bin" / "nvcc"
-        if root and cand.exists():
-            return str(cand)
-    raise RuntimeError("nvcc not found: the fused kernels are built at first use")
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    model = [p, p, p, i, i, p, i, i, i, i, i]
+    lib.repro_fused_lookup.argtypes = model + [
+        p, i, p, ll, p, i, i, p, p, i, p, p, p, p,
+    ]
+    lib.repro_fused_lookup.restype = i
+    lib.repro_fused_mlp.argtypes = model + [p, i, i, p, p, p]
+    lib.repro_fused_mlp.restype = i
 
 
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        tag = hashlib.sha1(CSRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = build_dir() / f"libfused_mlp-{tag}.so"
-        if not out.exists():
-            out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {CSRC}:\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, out)
-            BUILD_INFO["seconds"] = time.perf_counter() - t0
-            BUILD_INFO["log"] = proc.stdout + proc.stderr
-        BUILD_INFO["path"] = str(out)
-        lib = ctypes.CDLL(str(out))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        model = [p, p, p, i, i, p, i, i, i, i, i]
-        lib.repro_fused_lookup.argtypes = model + [
-            p, i, p, ll, p, i, i, p, p, i, p, p, p, p,
-        ]
-        lib.repro_fused_lookup.restype = i
-        lib.repro_fused_mlp.argtypes = model + [p, i, i, p, p, p]
-        lib.repro_fused_mlp.restype = i
-        lib.repro_error_string.argtypes = [i]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-        return lib
+    return build.library(SOURCE, _bind)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -205,16 +141,11 @@ _CUDA_ERROR_INVALID_VALUE = 1
 
 
 def _raise_on(err: int, lib: ctypes.CDLL, what: str, margs: _ModelArgs) -> None:
-    if err == 0:
-        return
     hint = ""
     if err == _CUDA_ERROR_INVALID_VALUE:
         hint = (f"; hidden width {margs.hstride} may leave no activation tile that "
                 f"fits the 227 KB of shared memory a block may use")
-    raise RuntimeError(
-        f"{what} kernel launch failed: CUDA error {err} "
-        f"({lib.repro_error_string(err).decode()}){hint}"
-    )
+    build.raise_on(err, lib, what, hint)
 
 
 def fused_mlp_call(

@@ -28,7 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.model import MLPSpec
+from repro_torch.kernels import bitvector as bv_kernel
 from repro_torch.kernels import fused_mlp as fm_kernel
+from repro_torch.kernels.bitvector import pack_words32  # noqa: F401  (re-export)
 
 LANE = 128  # padding multiple, kept from the reference's weight layout
 DEFAULT_TILE_N = 256
@@ -188,14 +190,6 @@ def check_vmem_budget(
         )
 
 
-def pack_words32(words) -> np.ndarray:
-    """Contiguous uint32 view of a packed existence bit buffer (a
-    ``BitVector.words`` array) — the word layout the device existence
-    test reads (``bit = (words[k >> 5] >> (k & 31)) & 1``).  Copied from
-    ``repro.kernels.bitvector``."""
-    return np.ascontiguousarray(words).view(np.uint32)
-
-
 def words_tensor(words, device) -> torch.Tensor:
     """The packed words on ``device`` as an int32 view of
     :func:`pack_words32` (torch's uint32 support is thin; the kernel
@@ -281,3 +275,25 @@ def fused_lookup(
         int(capacity), pred_tables=tuple(pred_tables),
         pred_tasks=tuple(pred_tasks), with_exists=with_exists,
     )
+
+
+def bitvector_test(words64, keys: torch.Tensor, tile_n: int = 1024) -> torch.Tensor:
+    """Existence bits for integer keys against a packed uint64 word array
+    (the ``BitVector`` runtime form), on the keys' device.  Returns
+    (n,) bool.
+
+    The kernel works on uint32 words, split from the uint64 words on the
+    host.  Negative keys and keys above int32 become -1 before the launch
+    (as the engine's ``_keys_i32`` does), so they read as absent instead
+    of wrapping round to another key's bit; every key outside
+    ``[0, 32 * n_words)`` reads as absent.  The batch is padded with key
+    0 to a multiple of ``tile_n``, as the reference pads it."""
+    if not isinstance(keys, torch.Tensor):
+        raise TypeError(f"keys must be a tensor (its device picks the path), got {type(keys)}")
+    words32 = words_tensor(np.asarray(words64, dtype=np.uint64), keys.device)
+    k = keys.to(torch.int64)
+    k = torch.where((k >= 0) & (k <= 2**31 - 1), k, torch.full_like(k, -1))
+    n = k.shape[0]
+    kp = F.pad(k.to(torch.int32), (0, _round_up(max(n, tile_n), tile_n) - n))
+    bits = bv_kernel.bitvector_call(kp, words32, tile_n)
+    return bits[:n].to(torch.bool)

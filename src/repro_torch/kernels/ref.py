@@ -1,12 +1,12 @@
-"""Plain PyTorch versions of the fused kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Two kinds live here:
 
 * the oracles of ``repro.kernels.ref`` — the plain model forward and the
   host staged lookup (host digits, forward, host ``BitVector.test``);
-* ``fused_mlp`` and ``fused_lookup``, each with its kernel's exact
-  contract (padded flat weights, padded batch, raw int32 keys, packed
-  words as an int32 view).  On a CPU tensor the kernel wrappers run
+* ``ref_bitvector_test``, ``fused_mlp`` and ``fused_lookup``, each with
+  its kernel's exact contract (padded flat weights, padded batch, raw
+  int32 keys, packed words as an int32 view).  On a CPU tensor the kernel wrappers run
   these; on the card ``chip_smoke.py`` holds each CUDA kernel against
   them on the same inputs.
 
@@ -53,6 +53,21 @@ def ref_fused_lookup(params: Dict, keys, encoder, vexist, spec: MLPSpec):
         digits = torch.from_numpy(encoder.digits(keys[idx])).to(dev)
         codes[idx] = ref_fused_mlp_codes(params, digits, spec).cpu().numpy()
     return codes, vexist.test(keys)
+
+
+def ref_bitvector_test(words32: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Plain version of the existence test: words32 (n_words,) int32 view
+    of the packed uint32 words (LSB first), keys (n,) integers.  Returns
+    (n,) int32 ``(words[k >> 5] >> (k & 31)) & 1``, and 0 for a key
+    outside ``[0, 32 * n_words)`` — ``BitVector.test``'s answer there,
+    where the reference's oracle would index out of range."""
+    k = keys.to(torch.int64)
+    in_dom = (k >= 0) & ((k >> 5) < words32.shape[0])
+    if not words32.numel():
+        return torch.zeros_like(k, dtype=torch.int32)
+    sk = torch.where(in_dom, k, torch.zeros_like(k))
+    w = words32[sk >> 5].to(torch.int64) & 0xFFFFFFFF
+    return (((w >> (sk & 31)) & 1) * in_dom).to(torch.int32)
 
 
 def _plan(spec: MLPSpec) -> Tuple[List[str], Dict[str, List[str]]]:
@@ -160,10 +175,7 @@ def fused_lookup(
     codes = torch.where(in_cap[:, None], codes, torch.zeros_like(codes))
     if not with_exists:
         return codes, None, None
-    in_dom = (k >= 0) & ((k >> 5) < words32.shape[0])
-    sk = torch.where(in_dom, k, torch.zeros_like(k))
-    w = words32[sk >> 5].to(torch.int64) & 0xFFFFFFFF
-    exists = (((w >> (sk & 31)) & 1) * in_dom).to(torch.int32)
+    exists = ref_bitvector_test(words32, k)
     match = None
     if pred_tables:
         match = exists

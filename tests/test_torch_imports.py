@@ -22,6 +22,8 @@ import torch
 from repro_torch.core import DeepMappingConfig, DeepMappingStore, InferenceEngine, KeyEncoder
 from repro_torch.core import model as tmodel
 from repro_torch.data.tpch import orders_like
+from repro_torch.kernels import bitvector as bv
+from repro_torch.kernels import build
 from repro_torch.kernels import fused_mlp as fm
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -120,10 +122,25 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 
 def test_cuda_sources_ship_and_build_dir_is_ignored():
-    assert fm.CSRC.exists() and fm.CSRC.parent.name == "csrc"
+    assert set(build.SOURCES) == {"fused_mlp.cu", "bitvector.cu"}
+    assert {fm.SOURCE, bv.SOURCE} == set(build.SOURCES)
+    assert build.CSRC_DIR.name == "csrc"
     text = (ROOT / "pyproject.toml").read_text()
     assert "repro_torch" in text and "csrc/*.cu" in text
-    rel = fm.build_dir().resolve().relative_to(ROOT)
-    assert rel.parts[0] == "build"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert "-gencode" in fm.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in fm.NVCC_FLAGS
+    paths = set()
+    for source in build.SOURCES:
+        assert (build.CSRC_DIR / source).exists()
+        lib = build.library_path(source)
+        assert lib.resolve().relative_to(ROOT).parts[0] == "build"
+        assert lib.name.startswith(f"lib{Path(source).stem}-") and lib.suffix == ".so"
+        paths.add(lib)
+    assert len(paths) == len(build.SOURCES)
+    assert build.build_dir().resolve().relative_to(ROOT).parts[0] == "build"
+    assert "-gencode" in build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_module_scan_covers_this_slices_modules():
+    names = {str(p.relative_to(PKG)) for p in MODULES}
+    assert {"train/optimizer.py", "kernels/bitvector.py", "kernels/build.py",
+            "core/trainer.py"} <= names

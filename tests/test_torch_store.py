@@ -178,9 +178,9 @@ class TestModifications:
         assert st.jit_calls >= 2 and st.fused_calls == 0 and st.pallas_calls == 0
 
     def test_build_requires_weights(self, built):
+        """Given weights must fit the table's key encoder.  (Building
+        without weights trains: ``test_torch_trainer.py``.)"""
         table = built[0]
-        with pytest.raises(ValueError, match="M2"):
-            DeepMappingStore.build(table, DeepMappingConfig(), device="cpu")
         bad = MLPSpec(base=10, width=3, shared=(4,), private={"col0": (), "col1": ()},
                       out_cards={"col0": 5, "col1": 3})
         with pytest.raises(ValueError, match="width"):
