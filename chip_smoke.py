@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --models-only [--src CHECKOUT]
 
 Drives the port's main paths at full width and holds every CUDA kernel
 on them against its plain PyTorch version on the card:
@@ -11,7 +12,13 @@ on them against its plain PyTorch version on the card:
                 ``nvcc`` per source, started together);
 2. kernels    — K1 (fused lookup) and K2 (fused MLP) against their plain
                 versions at buckets 256, 257, 65,536 and 65,537 plus key
-                edges; K1 codes equal K2 codes byte for byte;
+                edges; K1 codes equal K2 codes byte for byte; every tile
+                plan of the store's model forced at those buckets, and of
+                coverage models (no trunk, private depth 2, a card above
+                1,024, NaN/+-0/+-inf ties, hidden 1,024 and 2,048) that
+                take each tile shape: K2 codes and logits byte-identical
+                across plans, K1 codes equal to K2's, the default plan
+                against the plain version;
 3. bitvector  — K3 (the existence test) through ``bitvector_test`` over
                 the SF1 store's existence vector, at 1,023 to 65,537 keys
                 with edge keys and on all 1.5 M present keys plus 100,000
@@ -29,7 +36,11 @@ on them against its plain PyTorch version on the card:
                 up to 200 epochs), evaluates T_aux through K2 and answers
                 every key losslessly through K1;
 7. times      — kernel and plain-version times with CUDA events, the
-                kernels' bounds, and whole-table lookup throughput.
+                kernels' bounds, K1/K2 under each plan of the store's
+                model and on the store's heads under wider trunks (every
+                plan), one fp32 ``torch.matmul`` of the trunk's 256x256
+                layer as a yardstick, registers and spills per
+                instantiation, and whole-table lookup throughput.
 
 Each kernel's launches are counted on the paths that drive it (phases 3,
 4 and 6), with the counts set to 0 just before each path and read just
@@ -40,6 +51,11 @@ exit).  The last lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints
 no result.  A full record goes to ``chiprun_out/chip_smoke.json``.
+
+``--models-only`` runs none of that: it builds the kernels of the
+checkout under ``--src`` (this one by default) and prints one JSON line
+of K1/K2 times on the MODELS through the public calls, so that two
+checkouts can be timed in one call.
 """
 
 from __future__ import annotations
@@ -48,6 +64,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -87,10 +104,177 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def time_ms(fn, reps=20, warmup=3):
+    """Median device time of one call, each call between its own pair
+    of CUDA events.  A device-side spin queued ahead of the first
+    event keeps the card busy while the host runs the wrapper
+    (checks, ctypes), so the host's time is not read as the kernel's."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+def host_ms(fn, reps=50):
+    """Median host time of one call (checks, plan, ctypes, launch),
+    each made while a device spin keeps the card busy, so the launch
+    queue never waits on the device."""
+    import torch
+
+    ts = []
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(ts)
+
+
+#: The store's heads (width 8, four heads, cards 1000/5/3/1) under the
+#: store's layers and wider ones of the paper's architecture search
+#: (PAPER_MHAS layer sizes 100-2,000, up to two layers): (shared, private).
+#: Each takes another tile or slab depth; the previous design took the
+#: first three at 32 rows a block and the others at 8.
+MODELS = (
+    ((256, 256), (64,)),
+    ((512, 512), (64,)),
+    ((576,), (576, 576)),
+    ((1024, 1024), (64,)),
+    ((2000, 2000), (64,)),
+)
+MODEL_CARDS = (1000, 5, 3, 1)
+
+
+def flops_per_key(spec) -> int:
+    """Unpadded work per key: gather layer width*out adds, dense 2*in*out."""
+    flops = 0
+    d = None
+    for h in spec.shared:
+        flops += spec.width * h if d is None else 2 * d * h
+        d = h
+    for t in spec.tasks:
+        hd = d
+        for h in spec.private_map[t]:
+            flops += 2 * hd * h
+            hd = h
+        flops += 2 * hd * spec.card_map[t]
+    return flops
+
+
+def model_times(dev, seed: int, plans: bool) -> list:
+    """K1 and K2 ms per 65,536-key launch on the MODELS, and K1's host
+    time per launch, through the public calls of the ``repro_torch``
+    package on ``sys.path``; with ``plans``, also under every plan that
+    fits, forced through the private helpers, and with the codes checked
+    equal across plans and between K1 and K2."""
+    import numpy as np
+    import torch
+    from repro_torch.core import MLPSpec, init_params
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    n, width = 65536, 8
+    cap = 10 ** width
+    pos = torch.tensor([[10 ** (width - p), 10 ** (width - 1 - p)] for p in range(width)],
+                       dtype=torch.int32, device=dev)
+    keys = torch.from_numpy(rng.integers(0, cap, n).astype(np.int32)).to(dev)
+    digits = torch.stack([(keys.long() // 10 ** (width - 1 - p)) % 10 for p in range(width)],
+                         dim=1).to(torch.int32).contiguous()
+    words = ops.words_tensor(rng.integers(0, 2**63, cap // 64, dtype=np.uint64), dev)
+    base_pad = ops._round_up(10, ops.LANE)
+    tasks = [f"t{i}" for i in range(len(MODEL_CARDS))]
+    out = []
+    for shared, private in MODELS:
+        spec = MLPSpec(base=10, width=width, shared=shared, private={t: private for t in tasks},
+                       out_cards=dict(zip(tasks, MODEL_CARDS)))
+        flat, _ = ops.pad_flat_weights(init_params(spec, seed=seed, device=dev), spec)
+        pads = ops.card_pads(spec)
+        row = {
+            "shared": list(shared), "private": list(private),
+            "flops_per_key": flops_per_key(spec),
+            "bound_ms": n * flops_per_key(spec) / PEAK_FP32_FLOPS * 1e3,
+            "fused_lookup_ms": time_ms(
+                lambda: fm.fused_lookup_call(keys, pos, words, flat, spec, 256, base_pad, cap)),
+            "fused_mlp_ms": time_ms(
+                lambda: fm.fused_mlp_call(digits, flat, spec, 256, base_pad, pads, True)),
+            "fused_lookup_host_ms": host_ms(
+                lambda: fm.fused_lookup_call(keys, pos, words, flat, spec, 256, base_pad, cap)),
+        }
+        if plans:
+            row["default"] = fm.tile_plan(spec).describe()
+            row["by_plan"] = {}
+            first = None
+            for p in fm._candidate_plans(spec):
+                if p.smem_bytes > fm.SMEM_LIMIT:
+                    continue
+                c1 = fm._fused_lookup(keys, pos, words, flat, spec, 256, base_pad, cap,
+                                      plan=p)[0]
+                c2 = fm._fused_mlp(digits, flat, spec, 256, base_pad, pads, True, plan=p)
+                check(torch.equal(c1, c2), f"K1 and K2 codes differ ({p.describe()})")
+                first = c2 if first is None else first
+                check(torch.equal(c2, first), f"K2 codes differ across plans ({p.describe()})")
+                row["by_plan"][f"{p.tile.name}/{p.schedule}/slab {p.slab}"] = {
+                    "fused_lookup_ms": time_ms(
+                        lambda: fm._fused_lookup(keys, pos, words, flat, spec, 256, base_pad,
+                                                 cap, plan=p)),
+                    "fused_mlp_ms": time_ms(
+                        lambda: fm._fused_mlp(digits, flat, spec, 256, base_pad, pads, True,
+                                              plan=p)),
+                }
+        out.append(row)
+    return out
+
+
+def models_only(src: Path, seed: int) -> int:
+    """``--models-only``: build the kernels of the package under
+    ``src/src`` and print the MODELS' times as one JSON line, so that two
+    checkouts can be compared in one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src / "src"))
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    ptxas = [ln.strip() for ln in build.BUILD_INFO["fused_mlp.cu"]["log"].splitlines()
+             if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
+    print(json.dumps({"phase": "models", "src": str(src), "nvidia_smi": smi, "ptxas": ptxas,
+                      "models": model_times(torch.device("cuda"), seed, plans=False)}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--models-only", action="store_true",
+                    help="only time K1 and K2 on the wider models, through the public calls")
+    ap.add_argument("--src", type=Path, default=ROOT,
+                    help="with --models-only: the checkout whose src/ package to time")
     args = ap.parse_args()
+    if args.models_only:
+        return models_only(args.src.resolve(), args.seed)
 
     import numpy as np
     import torch
@@ -255,8 +439,128 @@ def main() -> int:
         check(torch.equal(k1[in_cap], k2[in_cap]), "K1 and K2 codes differ")
         check(bool((k1[~in_cap] == 0).all()), "K1 codes outside capacity are not 0")
         cases.append({"kernel": "fused_mlp", "n": n, "bucket": bucket, "margin_rows": nd})
+
+    def same_bits(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def plan_sweep(mspec, mflat, kt, digits, in_cap, mpos, mcap):
+        """Every plan that fits ``mspec``, forced through the private
+        helpers: K2 codes and logits byte-identical across plans, and K1
+        codes equal to K2's on in-capacity rows.  Returns the default
+        plan's (codes, logits) and the plans run."""
+        plans = [p for p in fm._candidate_plans(mspec) if p.smem_bytes <= fm.SMEM_LIMIT]
+        check(plans[0].describe() == fm.tile_plan(mspec).describe(),
+              "the default plan is not the first that fits")
+        pads = ops.card_pads(mspec)
+        first = None
+        for p in plans:
+            c2 = fm._fused_mlp(digits, mflat, mspec, 256, base_pad, pads, True, plan=p)
+            l2 = fm._fused_mlp(digits, mflat, mspec, 256, base_pad, pads, False, plan=p)
+            c1 = fm._fused_lookup(kt, mpos, words, mflat, mspec, 256, base_pad, mcap,
+                                  plan=p)[0]
+            torch.cuda.synchronize()
+            check(torch.equal(c1[in_cap], c2[in_cap]), f"K1 and K2 codes differ ({p.describe()})")
+            if first is None:
+                first = (c2, l2)
+                continue
+            check(torch.equal(c2, first[0]), f"K2 codes differ across plans ({p.describe()})")
+            check(all(same_bits(a, b) for a, b in zip(l2, first[1])),
+                  f"K2 logits differ across plans ({p.describe()})")
+        return first, [f"{p.tile.name}/{p.schedule}/slab {p.slab}" for p in plans]
+
+    # The store's model under every plan, at the same buckets.
+    sweep = []
+    for n in (256, 257, 65536, 65537):
+        bucket = 256
+        while bucket < n:
+            bucket <<= 1
+        kp = np.full(bucket, -1, dtype=np.int32)
+        kp[:n] = np.concatenate([edges, rng.integers(0, table.max_key + 64, n - edges.size)])
+        kt = torch.from_numpy(kp).to(dev)
+        digits, in_cap = digits_of(kt)
+        _, names = plan_sweep(spec, flat, kt, digits, in_cap, pos_ops, cap)
+        sweep.append({"n": n, "bucket": bucket, "plans": names})
+
+    # Coverage models, at least one per tile shape, each under every plan
+    # and held against the plain version at its default plan.
+    def coverage_model(name, width, shared, private, cards, special=None):
+        tasks = [f"t{i}" for i in range(len(cards))]
+        mspec = MLPSpec(base=10, width=width, shared=shared,
+                        private={t: tuple(private[i]) for i, t in enumerate(tasks)},
+                        out_cards=dict(zip(tasks, cards)))
+        mflat, _ = ops.pad_flat_weights(init_params(mspec, seed=args.seed, device=dev), mspec)
+        if special:
+            mflat = special(list(mflat))
+        mcap = 10 ** width
+        mpos = torch.tensor([[10 ** (width - p), 10 ** (width - 1 - p)] for p in range(width)],
+                            dtype=torch.int32, device=dev)
+        out = []
+        for n in (257, 65537):
+            bucket = ops._round_up(n, 256)
+            kp = np.full(bucket, -1, dtype=np.int32)
+            kp[:n] = rng.integers(-3, mcap + 3, n)
+            kt = torch.from_numpy(kp).to(dev)
+            k = kt.long()
+            m_in = (k >= 0) & (k < mcap)
+            safe = torch.where(m_in, k, torch.zeros_like(k))
+            digits = torch.stack([((safe // 10 ** (width - 1 - p)) % 10) for p in range(width)],
+                                 dim=1).to(torch.int32).contiguous()
+            (c2, l2), names = plan_sweep(mspec, mflat, kt, digits, m_in, mpos, mcap)
+            want_l = ref.fused_mlp(digits, mflat, mspec, False)
+            want_c = ref.fused_mlp(digits, mflat, mspec, True)
+            for a, b in zip(l2, want_l):
+                torch.testing.assert_close(a, b, rtol=LOGIT_TOL, atol=LOGIT_TOL, equal_nan=True)
+                fin = torch.isfinite(b)
+                kern_err["fused_mlp"] = max(kern_err["fused_mlp"],
+                                            (a[fin] - b[fin]).abs().max().item())
+            tops = [torch.topk(b[:, :mspec.card_map[t]], min(2, mspec.card_map[t]), dim=1).values
+                    for t, b in zip(mspec.tasks, want_l)]
+            marg = torch.stack([v[:, 0] - v[:, 1] if v.shape[1] > 1
+                                else torch.full_like(v[:, 0], float("inf")) for v in tops], dim=1)
+            nd, _ = cmp_codes(c2, want_c, marg)
+            out.append({"model": name, "n": n, "bucket": bucket, "plans": names,
+                        "default": fm.tile_plan(mspec).describe(), "margin_rows": nd,
+                        "nan_logits": int(sum(torch.isnan(b).sum() for b in want_l)),
+                        "inf_logits": int(sum(torch.isinf(b).sum() for b in want_l))})
+        return out
+
+    def ties(mflat):
+        # Head t0's out layer (flat[4], flat[5]): equal columns (finite
+        # ties), +inf weights at k = 5 (+inf logits where x_5 > 0, NaN
+        # where x_5 == 0), a -inf column, zero columns with biases -0 and
+        # +0, and a NaN column; head t1's columns all equal.
+        w, b = mflat[4].clone(), mflat[5].clone()
+        w[:, 9], b[9] = w[:, 2], b[2]
+        w[:, 11], b[11] = w[:, 2], b[2]
+        w[:, 3] = 0
+        w[5, 3] = float("inf")
+        w[:, 5] = 0
+        w[5, 5] = float("inf")
+        w[:, 7] = 0
+        w[6, 7] = -float("inf")
+        w[:, 13], b[13] = 0, -0.0
+        w[:, 14], b[14] = 0, 0.0
+        w[:, 20] = float("nan")
+        w1 = mflat[2].clone()
+        w1[:, 5] *= 50
+        w2, b2 = mflat[8].clone(), mflat[9].clone()
+        w2[:, :6] = w2[:, :1]
+        b2[:6] = b2[0]
+        mflat[2], mflat[4], mflat[5], mflat[8], mflat[9] = w1, w, b, w2, b2
+        return tuple(t.contiguous() for t in mflat)
+
+    coverage = []
+    coverage += coverage_model("private depth 2", 8, (256, 256), [(64, 64)] * 4,
+                               (1000, 5, 3, 1))
+    coverage += coverage_model("no trunk", 6, (), [(64,), (), (32, 16)], (7, 3, 130))
+    coverage += coverage_model("card 1100", 8, (256,), [(64,)] * 2, (1100, 2))
+    coverage += coverage_model("NaN, +-0, +-inf ties", 8, (128,), [(32,)] * 2, (40, 6), ties)
+    coverage += coverage_model("hidden 1024", 8, (1024,), [(64,)] * 2, (300, 5))
+    coverage += coverage_model("hidden 2048", 8, (2048,), [(2048,)] * 2, (300, 5))
+    tiles_seen = {c["default"].split()[0] for c in coverage}
+    check(tiles_seen == {t.name for t in fm.TILES}, f"coverage models took only {tiles_seen}")
     emit("kernels_vs_plain", cases=cases, max_abs_err=kern_err, margin_rows=margin_rows,
-         logit_tol=LOGIT_TOL, margin_tol=MARGIN_TOL)
+         logit_tol=LOGIT_TOL, margin_tol=MARGIN_TOL, plan_sweep=sweep, coverage=coverage)
 
     # ---------------------------------------------------- 3. bitvector
     # K3's path is its public entry point, bitvector_test, over the SF1
@@ -506,42 +810,11 @@ def main() -> int:
     )
 
     # --------------------------------------------------------- 7. times
-    def time_ms(fn, reps=20, warmup=3):
-        """Median device time of one call, each call between its own pair
-        of CUDA events.  A device-side spin queued ahead of the first
-        event keeps the card busy while the host runs the wrapper
-        (checks, ctypes), so the host's time is not read as the kernel's."""
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SPIN_CYCLES)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-        return statistics.median(ts)
-
     n = 65536
     kp = rng.choice(table.keys, n).astype(np.int32)
     kt = torch.from_numpy(kp).to(dev)
     digits, _ = digits_of(kt)
-    # Unpadded work per key: gather layer width*out adds, dense 2*in*out.
-    flops_key = 0
-    d = None
-    for h in spec.shared:
-        flops_key += spec.width * h if d is None else 2 * d * h
-        d = h
-    for t in spec.tasks:
-        hd = d
-        for h in spec.private_map[t]:
-            flops_key += 2 * hd * h
-            hd = h
-        flops_key += 2 * hd * spec.card_map[t]
+    flops_key = flops_per_key(spec)
     io_k1 = n * (4 + 4 * m + 4) + wbytes + int(words.numel()) * 4 + int(pos_ops.numel()) * 4
     io_k2 = n * (4 * spec.width + 4 * m) + wbytes
     kernels = []
@@ -599,12 +872,59 @@ def main() -> int:
         "keys_sf1": sf1["keys"], "sf1_runs": {k: sf1[k] for k in ("ms_runs", "plain_ms_runs",
                                                                   "words_touched", "bytes")},
     })
+    # K1 and K2 under every plan of the store's model that fits, same keys.
+    by_plan = {}
+    pads = ops.card_pads(spec)
+    for p in fm._candidate_plans(spec):
+        if p.smem_bytes > fm.SMEM_LIMIT:
+            continue
+        by_plan[f"{p.tile.name}/{p.schedule}/slab {p.slab}"] = {
+            "fused_lookup_ms": time_ms(
+                lambda: fm._fused_lookup(kt, pos_ops, words, flat, spec, 256, base_pad, cap,
+                                         plan=p)),
+            "fused_mlp_ms": time_ms(
+                lambda: fm._fused_mlp(digits, flat, spec, 256, base_pad, pads, True, plan=p)),
+        }
+    # The wrappers' host time per launch (their plan is cached per spec),
+    # and what computing the plan costs where it is not: one first fit,
+    # and every candidate (16 at the store's shape).
+    host = {
+        "fused_lookup_ms": host_ms(
+            lambda: fm.fused_lookup_call(kt, pos_ops, words, flat, spec, 256, base_pad, cap)),
+        "fused_mlp_ms": host_ms(
+            lambda: fm.fused_mlp_call(digits, flat, spec, 256, base_pad, pads, True)),
+        "plan_uncached_ms": host_ms(lambda: fm.tile_plan.__wrapped__(spec)),
+        "all_candidates_ms": host_ms(lambda: list(fm._candidate_plans(spec))),
+    }
+    # The store's heads under wider trunks, under their own plans and
+    # every other that fits.
+    models = model_times(dev, args.seed, plans=True)
+    # A yardstick of fp32 GEMM on this card, not a library time for K1 or
+    # K2: one torch.matmul of the trunk's dense layer at this batch, TF32 off.
+    xd = torch.rand((n, 256), device=dev)
+    wd = torch.rand((256, 256), device=dev)
+    dense_ms = time_ms(lambda: torch.matmul(xd, wd))
+    # Registers and spills per instantiation, from nvcc's -Xptxas -v.
+    regs, entry = {}, None
+    for ln in build.BUILD_INFO["fused_mlp.cu"]["log"].splitlines():
+        hit = re.search(r"(fused_(?:mlp|lookup)_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E", ln)
+        if "Compiling entry function" in ln and hit:
+            entry = f"{hit.group(1)}<{','.join(hit.groups()[1:])}>"
+            regs[entry] = {}
+        elif entry and "spill" in ln:
+            nums = re.findall(r"(\d+) bytes (stack frame|spill stores|spill loads)", ln)
+            regs[entry].update({k.replace(" ", "_"): int(v) for v, k in nums})
+        elif entry and "Used" in ln:
+            regs[entry]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
     t0 = time.perf_counter()
     _, _, tstats = store._lookup_with_stats(keys_all[alive])
     wall = time.perf_counter() - t0
     emit("times", nvidia_smi=smi, keys_per_launch=n, flops_per_key=flops_key,
          peak_fp32_flops=PEAK_FP32_FLOPS, peak_bytes_per_s=PEAK_BYTES_PER_S,
-         kernels=kernels,
+         kernels=kernels, ms_by_plan=by_plan, models=models, wrapper_host=host,
+         dense_layer_cublas_ms=dense_ms,
+         dense_layer_cublas_tflops=2 * n * 256 * 256 / (dense_ms * 1e-3) / 1e12,
+         ptxas_by_instantiation=regs,
          lookup={"keys": int(alive.size), "wall_s": wall, "keys_per_s": alive.size / wall,
                  "infer_s": tstats.infer_s, "exist_s": tstats.exist_s,
                  "aux_s": tstats.aux_s, "decode_s": tstats.decode_s})

@@ -9,10 +9,12 @@ residency budget that picks the engine's tier.
 **The budget is the reference's tier-selection rule, not a statement
 about Hopper memory.**  ``vmem_budget_bytes`` reads like the reference
 (``REPRO_VMEM_BUDGET`` wins, else 12 MiB; there is no TPU backend here)
-so that the port takes the same tier as the reference for the same spec.
-It does not describe the Hopper kernel, which reads its weights from
-global memory (L2) and keeps only an activation tile in shared memory;
-re-deriving the budget for Hopper belongs to the PR that redesigns K1.
+so that both packages pick the same tier for the same spec.  What limits
+one launch on Hopper is whether the activation tile fits a block's
+shared memory, not the weights' bytes: the kernel streams the weights
+from global memory (L2) in slabs, and
+``repro_torch.kernels.fused_mlp.tile_plan`` picks the widest tile whose
+activations fit, or raises.
 
 The wrappers run the CUDA kernel for tensors on the card and the plain
 version (``repro_torch.kernels.ref``) for tensors on the CPU.
