@@ -35,19 +35,41 @@ on them against its plain PyTorch version on the card:
                 at the paper's width and ``TrainConfig`` (batch 16,384,
                 up to 200 epochs), evaluates T_aux through K2 and answers
                 every key losslessly through K1;
-7. times      — kernel and plain-version times with CUDA events, the
+7. persist    — the trained store saved by the port in the reference's
+                v2 layout and reopened through ``repro_torch.open``:
+                every SF1 key plus 100,000 absent and 2,000
+                out-of-capacity keys answer byte for byte as before the
+                save and losslessly; a bit flipped in ``vexist.bin``
+                raises ``IntegrityError``; save, load and first-lookup
+                seconds and each artifact's bytes;
+8. query      — nine plans through ``store.query()`` on the reopened
+                store (a projected ``where_keys`` on 65,536 keys, a
+                ``scan`` with a ``where`` conjunction on two heads, a
+                ``where_range``, a count-only ``group_by``, a self-join
+                probe, a point ``where``, a filtered aggregate, a
+                filtered range, and a point lookup under nine ``where``
+                clauses on three heads, more than K1's eight predicate
+                slots, which ship as one table per head), each against
+                a numpy oracle and byte for byte against
+                ``pushdown(False)``, then all nine at once through
+                ``execute_plans``; the five ``where`` plans again on the
+                main store after its mutations.  K1 must run with
+                predicate tables and every ``where`` plan must report
+                ``kernel_filtered``;
+9. times      — kernel and plain-version times with CUDA events, the
                 kernels' bounds, K1/K2 under each plan of the store's
                 model and on the store's heads under wider trunks (every
                 plan), one fp32 ``torch.matmul`` of the trunk's 256x256
                 layer as a yardstick, registers and spills per
                 instantiation, and whole-table lookup throughput.
 
-Each kernel's launches are counted on the paths that drive it (phases 3,
-4 and 6), with the counts set to 0 just before each path and read just
-after; the launches made to compare a kernel with its plain version
-(phase 2) do not count.
-Each phase prints one JSON line; any failed check raises (non-zero
-exit).  The last lines are the kernel summary and
+Each kernel's launches are counted on every path that drives the port
+(phases 3 to 8), with the counts set to 0 just before each path and read
+just after; K1's launches that carried predicate tables are counted
+apart.  The launches made to compare a kernel with its plain version
+(phase 2) and those of phase 9 do not count.
+Each phase prints one JSON line with its seconds (``phase_s``); any
+failed check raises (non-zero exit).  The last lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints
 no result.  A full record goes to ``chiprun_out/chip_smoke.json``.
@@ -65,6 +87,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -91,10 +114,15 @@ ROWS = 1_500_000
 TRAIN_EPOCHS = 200
 
 RECORD: dict = {}
+#: perf_counter at the end of the previous phase (the script's start for
+#: the first).
+_PHASE_T0 = [time.perf_counter()]
 
 
 def emit(phase: str, **fields) -> None:
-    line = {"phase": phase, **fields}
+    now = time.perf_counter()
+    line = {"phase": phase, "phase_s": now - _PHASE_T0[0], **fields}
+    _PHASE_T0[0] = now
     RECORD[phase] = line
     print(json.dumps(line), flush=True)
 
@@ -283,7 +311,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
     from repro_torch import storage
+    from repro_torch.api import execute_plans
     from repro_torch.core import (
         BitVector, DeepMappingConfig, DeepMappingStore, InferenceEngine, KeyEncoder,
         MLPSpec, init_params,
@@ -291,6 +321,7 @@ def main() -> int:
     from repro_torch.core import trainer as trainer_lib
     from repro_torch.core.encoding import build_codecs
     from repro_torch.data.tpch import orders_like
+    from repro_torch.fault import IntegrityError
     from repro_torch.kernels import bitvector as bvk
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_mlp as fm
@@ -299,6 +330,23 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+
+    def reset_launches():
+        """Every kernel's launch count to 0 (just before a path)."""
+        fm.fused_lookup_call.launches = fm.fused_lookup_call.pred_launches = 0
+        fm.fused_mlp_call.launches = bvk.bitvector_call.launches = 0
+
+    def read_launches():
+        """Every kernel's launches since ``reset_launches`` (just after a
+        path); ``fused_lookup_with_preds`` counts K1's launches that
+        carried predicate tables."""
+        torch.cuda.synchronize()
+        return {"fused_lookup": fm.fused_lookup_call.launches,
+                "fused_lookup_with_preds": fm.fused_lookup_call.pred_launches,
+                "fused_mlp": fm.fused_mlp_call.launches,
+                "bitvector": bvk.bitvector_call.launches}
+
+    paths: dict = {}
 
     # ------------------------------------------------------------ 1. env
     smi = subprocess.run(
@@ -580,10 +628,10 @@ def main() -> int:
     k3_inputs.append(np.concatenate([table.keys, absent_k3, bv_edges]))
     k3_dev = [torch.from_numpy(k).to(dev) for k in k3_inputs]
     torch.cuda.synchronize()
-    bvk.bitvector_call.launches = 0
+    reset_launches()
     k3_out = [ops.bitvector_test(bv.words, k) for k in k3_dev]
-    torch.cuda.synchronize()
-    k3_launches = bvk.bitvector_call.launches
+    paths["bitvector"] = read_launches()
+    k3_launches = paths["bitvector"]["bitvector"]
     k3_cases = []
     k3_err = 0
     for keys, kd, got in zip(k3_inputs, k3_dev, k3_out):
@@ -604,8 +652,7 @@ def main() -> int:
          max_abs_err=k3_err)
 
     # ---------------------------------------------------------- 4. main
-    fm.fused_lookup_call.launches = 0
-    fm.fused_mlp_call.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     store = DeepMappingStore.build(table, config, spec=spec, params=params, device=dev)
     torch.cuda.synchronize()
@@ -663,12 +710,11 @@ def main() -> int:
     check(bool(e_s.all()), "a kept key reads as absent after mutations")
     for c in expect:
         check(np.array_equal(v_s[c], expect[c][sample]), f"{c} differs after mutations")
-    torch.cuda.synchronize()
-    main_launches = {"fused_lookup": fm.fused_lookup_call.launches,
-                     "fused_mlp": fm.fused_mlp_call.launches}
+    main_launches = paths["main"] = read_launches()
     check(st.fused_calls > 0 and st.pallas_calls > 0, "the kernel tiers were not taken")
     check(st.jit_calls == 0, "a plain jit tier was taken")
-    check(all(v > 0 for v in main_launches.values()), "a kernel was not launched")
+    check(main_launches["fused_lookup"] > 0 and main_launches["fused_mlp"] > 0,
+          "a kernel was not launched")
     emit(
         "main", rows=table.num_rows, max_key=table.max_key, width=encoder.width,
         capacity=cap, cards=spec.card_map, padded_weight_bytes=wbytes,
@@ -692,9 +738,10 @@ def main() -> int:
     plan = streamed._streamed_plan(entry, True)
     check(plan is not None and len(plan[0]) > 1, "no multi-page streamed plan")
     store.attach_engine(streamed)
-    before = fm.fused_lookup_call.launches
+    reset_launches()
     v2, e2 = store.lookup(keys_all[alive])
     v3, e3 = store.lookup(free)
+    paths["streamed"] = read_launches()
     check(streamed.stats.fused_streamed_calls > 0, "the streamed tier was not taken")
     check(streamed.stats.fused_calls == 0 and streamed.stats.jit_calls == 0,
           "another tier was taken under the forced budget")
@@ -706,7 +753,7 @@ def main() -> int:
     store.attach_engine(resident)
     emit("streamed", budget=budget, pages=[list(p) for p in plan[0]],
          pages_with_exists=plan[1], fused_streamed_calls=streamed.stats.fused_streamed_calls,
-         fused_lookup_launches=fm.fused_lookup_call.launches - before)
+         fused_lookup_launches=paths["streamed"]["fused_lookup"])
 
     # --------------------------------------------------------- 6. train
     # build() with no weights trains (the paper's TrainConfig), then
@@ -727,8 +774,7 @@ def main() -> int:
                        steps=int(out[1].step))
         return out
 
-    fm.fused_lookup_call.launches = 0
-    fm.fused_mlp_call.launches = 0
+    reset_launches()
     trainer_lib.train = timed_train
     try:
         t0 = time.perf_counter()
@@ -754,10 +800,9 @@ def main() -> int:
     check(not tex_abs.any(), "trained store: an absent key reads as present")
     check(not tex_out.any(), "trained store: an out-of-capacity key reads as present")
     check(tst.fused_calls > 0 and tst.jit_calls == 0, "the trained store left the fused tier")
-    torch.cuda.synchronize()
-    train_launches = {"fused_lookup": fm.fused_lookup_call.launches,
-                      "fused_mlp": fm.fused_mlp_call.launches}
-    check(all(v > 0 for v in train_launches.values()), "a kernel was not launched")
+    train_launches = paths["train"] = read_launches()
+    check(train_launches["fused_lookup"] > 0 and train_launches["fused_mlp"] > 0,
+          "a kernel was not launched")
     # Where a training step's time goes: a torch.profiler trace of a few
     # steps at the trainer's batch, device kernel time by name against
     # the host clock.
@@ -809,7 +854,283 @@ def main() -> int:
         step_profile=step_profile,
     )
 
-    # --------------------------------------------------------- 7. times
+    # ------------------------------------------------------- 7. persist
+    # The trained store saved by the port in the reference's v2 layout
+    # and reopened through repro_torch.open, onto the card: every SF1
+    # key plus the absent and out-of-capacity keys answer byte for byte
+    # as before the save, and a bit flipped in vexist.bin raises
+    # IntegrityError.  The store lives under the ignored build/.
+    probe = np.concatenate([train_table.keys, absent, out_cap])
+    want_v, want_e = tstore.lookup(probe)
+    store_dir = ROOT / "build" / f"chip_smoke_store_{os.getpid()}"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        tstore.save(str(store_dir / "sf1"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = repro_torch.open(str(store_dir / "sf1"))
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_v, got_e = loaded.lookup(probe)
+        first_lookup_s = time.perf_counter() - t0
+        persist_launches = paths["persist"] = read_launches()
+        check(loaded.device.type == "cuda" and loaded.config.use_kernels,
+              "the reopened store is not on the card with kernels on")
+        check(np.array_equal(got_e, want_e), "existence differs after the reload")
+        for c in want_v:
+            check(got_v[c].dtype == want_v[c].dtype and got_v[c].tobytes() == want_v[c].tobytes(),
+                  f"column {c} differs after the reload")
+            check(np.array_equal(got_v[c][: train_table.num_rows], train_table.columns[c]),
+                  f"reloaded store: column {c} is not lossless")
+        check(bool(got_e[: train_table.num_rows].all())
+              and not got_e[train_table.num_rows:].any(), "reloaded existence is wrong")
+        check(loaded.engine.stats.fused_calls > 0 and loaded.engine.stats.jit_calls == 0,
+              "the reloaded store left the fused tier")
+        check(persist_launches["fused_lookup"] > 0, "the reloaded store did not launch K1")
+        artifact_bytes = {f.name: f.stat().st_size for f in sorted((store_dir / "sf1").iterdir())}
+        flipped = store_dir / "flipped"
+        shutil.copytree(store_dir / "sf1", flipped)
+        blob = bytearray((flipped / "vexist.bin").read_bytes())
+        blob[len(blob) // 2] ^= 0x01
+        (flipped / "vexist.bin").write_bytes(bytes(blob))
+        integrity_error = None
+        try:
+            repro_torch.open(str(flipped))
+        except IntegrityError as err:
+            integrity_error = str(err)
+        check(integrity_error is not None and "vexist.bin" in integrity_error,
+              "a store with a flipped vexist.bin bit loaded")
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    emit("persist", rows=train_table.num_rows, keys_checked=int(probe.size),
+         absent_checked=int(absent.size), out_of_capacity_checked=int(out_cap.size),
+         save_s=save_s, load_s=load_s, first_lookup_s=first_lookup_s,
+         first_lookup_keys_per_s=probe.size / first_lookup_s, artifact_bytes=artifact_bytes,
+         store_bytes=sum(artifact_bytes.values()), aux_rows=loaded.aux.num_rows,
+         aux_codec=loaded.config.codec + ("" if storage.HAVE_ZSTD else " (zlib fallback)"),
+         integrity_error=integrity_error, launches=persist_launches)
+
+    # --------------------------------------------------------- 8. query
+    # Plans through store.query() on the reopened SF1 store, each held
+    # against a numpy oracle over the source table and byte for byte
+    # against pushdown(False); the where plans again on the main store
+    # after its mutations.  A where conjunction ships its predicate code
+    # tables into K1, which returns the match bits the store filters on.
+    def oracle_of(keys, columns):
+        order = np.argsort(keys, kind="stable")
+        keys, columns = keys[order], {c: v[order] for c, v in columns.items()}
+        pos = np.full(int(keys.max()) + 2, -1, dtype=np.int32)
+        pos[keys] = np.arange(keys.size, dtype=np.int32)
+
+        def rows(k):
+            k = np.asarray(k, np.int64)
+            inside = (k >= 0) & (k < pos.size)
+            r = np.full(k.size, -1, dtype=np.int32)
+            r[inside] = pos[k[inside]]
+            return r
+        return keys, columns, rows
+
+    def check_rows(name, res, keys, values):
+        check(np.array_equal(res.keys, keys), f"{name}: keys differ from the oracle")
+        check(bool(res.exists.all()), f"{name}: a returned row is absent")
+        for c, v in values.items():
+            check(np.array_equal(res.values[c], v), f"{name}: {c} differs from the oracle")
+        check(set(res.values) == set(values), f"{name}: columns differ from the oracle")
+
+    def check_groups(name, res, group_by, groups, counts):
+        check(res.num_groups == len(groups), f"{name}: group count differs")
+        for i, c in enumerate(group_by):
+            check(np.array_equal(np.asarray(res.groups[c]).astype(str),
+                                 np.asarray([g[i] for g in groups]).astype(str)),
+                  f"{name}: group {c} differs")
+        for agg, want in counts.items():
+            check(np.array_equal(np.asarray(res.aggregates[agg]), want),
+                  f"{name}: {agg} differs from the oracle")
+
+    def plans_for(okeys, ocols, rows, prio, lo, hi, qk):
+        """(name, build(store) -> Query, oracle check) for the 9 plans."""
+        def point(res):
+            r = rows(qk)
+            ex = r >= 0
+            check(np.array_equal(res.exists, ex), "point: existence differs from the oracle")
+            for c in ("o_clerk", "o_orderstatus"):
+                check(np.array_equal(res.values[c][ex], ocols[c][r[ex]]),
+                      f"point: {c} differs from the oracle")
+
+        def scan_where(res):
+            m = (ocols["o_orderpriority"] == prio) & np.isin(ocols["o_orderstatus"], ["F", "P"])
+            check_rows("scan_where", res, okeys[m], {"o_clerk": ocols["o_clerk"][m]})
+
+        def range_all(res):
+            m = (okeys >= lo) & (okeys < hi)
+            check_rows("range", res, okeys[m], {c: v[m] for c, v in ocols.items()})
+
+        def count_groups(res):
+            pairs = np.char.add(np.char.add(ocols["o_orderpriority"].astype(str), "|"),
+                                ocols["o_orderstatus"].astype(str))
+            u, n = np.unique(pairs, return_counts=True)
+            check_groups("count", res, ("o_orderpriority", "o_orderstatus"),
+                         [tuple(x.split("|")) for x in u], {"count": n})
+            check(res.explain.rows_decoded == 0, "count-only group_by decoded rows")
+
+        jlo, jhi = lo, lo + (hi - lo) // 2
+
+        def self_join(res):
+            left = np.flatnonzero((okeys >= jlo) & (okeys < jhi))
+            r = rows(okeys[left] + 1)
+            keep = r >= 0
+            check_rows("self_join", res, okeys[left][keep],
+                       {"o_clerk": ocols["o_clerk"][left][keep],
+                        "o_orderpriority": ocols["o_orderpriority"][r[keep]]})
+
+        def point_where(res):
+            r = rows(qk)
+            hit = r >= 0
+            hit[hit] = ocols["o_clerk"][r[hit]] < 100
+            check_rows("point_where", res, qk[hit],
+                       {c: ocols[c][r[hit]] for c in ocols})
+
+        def agg_where(res):
+            m = ocols["o_orderpriority"] != prio
+            st_ = ocols["o_orderstatus"][m]
+            ck = ocols["o_clerk"][m].astype(np.int64)
+            u = np.unique(st_)
+            check_groups("agg_where", res, ("o_orderstatus",), [(x,) for x in u], {
+                "count": np.array([(st_ == x).sum() for x in u]),
+                "sum(o_clerk)": np.array([ck[st_ == x].sum() for x in u]),
+                "min(o_clerk)": np.array([ck[st_ == x].min() for x in u]),
+                "max(o_clerk)": np.array([ck[st_ == x].max() for x in u])})
+
+        def range_where(res):
+            m = (okeys >= lo) & (okeys < hi) & (ocols["o_orderstatus"] == "O")
+            check_rows("range_where", res, okeys[m],
+                       {"o_orderpriority": ocols["o_orderpriority"][m]})
+
+        nine = (("o_clerk", ">=", 10), ("o_clerk", "<", 900), ("o_clerk", "!=", 50),
+                ("o_clerk", ">", 20), ("o_clerk", "<=", 800),
+                ("o_orderstatus", "!=", "P"), ("o_orderstatus", "in", ("F", "O")),
+                ("o_orderpriority", "!=", prio),
+                ("o_orderpriority", "in",
+                 tuple(np.unique(ocols["o_orderpriority"])[:4].tolist())))
+        cmp = {">=": lambda a, v: a >= v, "<": lambda a, v: a < v,
+               "!=": lambda a, v: a != v, ">": lambda a, v: a > v,
+               "<=": lambda a, v: a <= v, "in": lambda a, v: np.isin(a, v)}
+
+        def point_where9(res):
+            r = rows(qk)
+            hit = r >= 0
+            for c, op, v in nine:
+                hit[hit] = cmp[op](ocols[c][r[hit]], v)
+            check_rows("point_where9", res, qk[hit],
+                       {c: ocols[c][r[hit]] for c in ocols})
+
+        def where9(s):
+            q = s.query()
+            for c, op, v in nine:
+                q = q.where(c, op, v)
+            return q.where_keys(qk)
+
+        return [
+            ("point", lambda s: s.query().select("o_clerk", "o_orderstatus").where_keys(qk),
+             point),
+            ("scan_where", lambda s: s.query().select("o_clerk")
+             .where("o_orderpriority", "==", prio).where("o_orderstatus", "in", ("F", "P"))
+             .scan(), scan_where),
+            ("range", lambda s: s.query().where_range(lo, hi), range_all),
+            ("count", lambda s: s.query().group_by("o_orderpriority", "o_orderstatus")
+             .agg("count").scan(), count_groups),
+            ("self_join", lambda s: s.query().select("o_clerk").where_range(jlo, jhi)
+             .join(s, key=lambda k: k + 1, columns=("o_orderpriority",)), self_join),
+            ("point_where", lambda s: s.query().where("o_clerk", "<", 100).where_keys(qk),
+             point_where),
+            ("agg_where", lambda s: s.query().where("o_orderpriority", "!=", prio)
+             .group_by("o_orderstatus").agg("count", ("sum", "o_clerk"), ("min", "o_clerk"),
+                                            ("max", "o_clerk")).scan(), agg_where),
+            ("range_where", lambda s: s.query().select("o_orderpriority")
+             .where("o_orderstatus", "==", "O").where_range(lo, hi), range_where),
+            ("point_where9", where9, point_where9),
+        ]
+
+    def same_result(a, b):
+        if hasattr(a, "aggregates"):
+            return (a.num_groups == b.num_groups
+                    and all(np.array_equal(a.groups[c], b.groups[c]) for c in a.groups)
+                    and all(np.array_equal(a.aggregates[k], b.aggregates[k])
+                            for k in a.aggregates))
+        return (a.keys.tobytes() == b.keys.tobytes() and np.array_equal(a.exists, b.exists)
+                and set(a.values) == set(b.values)
+                and all(a.values[c].dtype == b.values[c].dtype
+                        and a.values[c].tobytes() == b.values[c].tobytes() for c in a.values))
+
+    def run_plans(s, plans):
+        """Each plan alone (timed, against its oracle and pushdown(False)),
+        then all of them at once through execute_plans."""
+        out = []
+        serial = []
+        for name, build_q, oracle in plans:
+            t0 = time.perf_counter()
+            res = build_q(s).execute()
+            wall = time.perf_counter() - t0
+            oracle(res)
+            check(same_result(res, build_q(s).pushdown(False).execute()),
+                  f"{name}: pushdown differs from pushdown(False)")
+            ex = res.explain
+            where = bool(build_q(s).plan().predicates)
+            if where:
+                check(ex.kernel_filtered, f"{name}: the predicates were not filtered in K1")
+            out.append({
+                "plan": name, "wall_s": wall, "keys": ex.num_keys,
+                "rows_per_s": ex.num_keys / wall, "rows_out": ex.num_rows,
+                "morsels": ex.morsels, "kernel_filtered": ex.kernel_filtered,
+                "rows_decoded": ex.rows_decoded, "rows_matched": ex.rows_matched,
+                "plan_cache": ex.plan_cache, "stages": list(ex.plan),
+                "split_s": {k: getattr(ex, k) for k in ("route_s", "infer_s", "exist_s",
+                                                         "aux_s", "filter_s", "decode_s",
+                                                         "agg_s", "gather_s", "total_s")},
+            })
+            serial.append(res)
+        t0 = time.perf_counter()
+        together = execute_plans([(s, build_q(s).plan()) for _, build_q, _ in plans])
+        together_s = time.perf_counter() - t0
+        for (name, _, _), a, b in zip(plans, together, serial):
+            check(same_result(a, b), f"{name}: execute_plans differs from execute_plan")
+        return out, together_s
+
+    okeys, ocols, orows = oracle_of(train_table.keys, train_table.columns)
+    prio = str(ocols["o_orderpriority"][0])
+    lo, hi = int(okeys[okeys.size // 4]), int(okeys[okeys.size // 2])
+    half = min(32_768, okeys.size // 4)
+    qk = rng.permutation(np.concatenate([rng.choice(okeys, half, replace=False),
+                                         rng.integers(0, int(okeys.max()) + 64, 65_536 - half)]))
+    sf1_plans = plans_for(okeys, ocols, orows, prio, lo, hi, qk)
+    mkeys, mcols, mrows = oracle_of(
+        np.concatenate([keys_all[alive], free]),
+        {c: np.concatenate([expect[c][alive], ins_cols[c]]) for c in expect})
+    mlo, mhi = int(mkeys[mkeys.size // 3]), int(mkeys[2 * mkeys.size // 3])
+    mqk = rng.permutation(np.concatenate([rng.choice(mkeys, half, replace=False), free,
+                                          keys_all[del_idx][:1000],
+                                          rng.integers(0, int(mkeys.max()) + 64,
+                                                       60_536 - half)]))
+    main_plans = [p for p in plans_for(mkeys, mcols, mrows, prio, mlo, mhi, mqk)
+                  if p[0] in ("scan_where", "point_where", "agg_where", "range_where",
+                              "point_where9")]
+    reset_launches()
+    sf1_runs, sf1_together_s = run_plans(loaded, sf1_plans)
+    main_runs, main_together_s = run_plans(store, main_plans)
+    query_launches = paths["query"] = read_launches()
+    check(query_launches["fused_lookup_with_preds"] > 0,
+          "K1 ran with no predicate tables on the query path")
+    check(loaded.engine.stats.jit_calls == 0 and store.engine.stats.jit_calls == 0,
+          "a query left the kernel tiers")
+    emit("query", plans_sf1=sf1_runs, execute_plans_sf1_s=sf1_together_s,
+         plans_main_after_mutations=main_runs, execute_plans_main_s=main_together_s,
+         point_keys=int(qk.size), range=[lo, hi], launches=query_launches)
+    del loaded
+
+    # --------------------------------------------------------- 9. times
     n = 65536
     kp = rng.choice(table.keys, n).astype(np.int32)
     kt = torch.from_numpy(kp).to(dev)
@@ -836,8 +1157,11 @@ def main() -> int:
         t_io = io / PEAK_BYTES_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": "src/repro_torch/csrc/fused_mlp.cu",
-            "replaces": src_line, "launches": main_launches[name] + train_launches[name],
-            "launches_by_path": {"main": main_launches[name], "train": train_launches[name]},
+            "replaces": src_line, "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {path: c[name] for path, c in paths.items()},
+            **({"launches_with_preds_by_path": {path: c["fused_lookup_with_preds"]
+                                                for path, c in paths.items()}}
+               if name == "fused_lookup" else {}),
             "max_abs_err": kern_err[name], "ms": min(ms, ms_b),
             "plain_ms": min(plain_a, plain_b), "bound_ms": max(t_ops, t_io),
             "bound_by": "operations" if t_ops >= t_io else "bytes", "library_ms": None,
@@ -865,9 +1189,10 @@ def main() -> int:
     sf1 = k3_times[k3_inputs[-1].size]
     kernels.append({
         "name": "bitvector", "route": "cuda", "source": "src/repro_torch/csrc/bitvector.cu",
-        "replaces": "src/repro/kernels/bitvector.py:47", "launches": k3_launches,
+        "replaces": "src/repro/kernels/bitvector.py:47",
+        "launches": sum(c["bitvector"] for c in paths.values()),
         "max_abs_err": k3_err, **k3_times[n], "bound_by": "bytes", "library_ms": None,
-        "launches_by_path": {"bitvector": k3_launches},
+        "launches_by_path": {path: c["bitvector"] for path, c in paths.items()},
         "ms_sf1": sf1["ms"], "plain_ms_sf1": sf1["plain_ms"], "bound_ms_sf1": sf1["bound_ms"],
         "keys_sf1": sf1["keys"], "sf1_runs": {k: sf1[k] for k in ("ms_runs", "plain_ms_runs",
                                                                   "words_touched", "bytes")},

@@ -1,13 +1,20 @@
 """DeepMapping in PyTorch and CUDA: the port of the JAX package ``repro``.
 
 It imports ``torch`` and ``numpy``, never ``jax`` and nothing of
-``repro``.  Entry points (``DeepMappingStore.build``,
-``InferenceEngine``) run on the CUDA device unless given ``device=``;
-without a GPU they raise.  The fused lookup and fused MLP kernels are
-hand-written CUDA (``csrc/fused_mlp.cu``), built with ``nvcc`` at first
-use.
+``repro``.  Entry points (``repro_torch.open``, ``repro_torch.build``,
+``DeepMappingStore.build``/``load``, ``InferenceEngine``) run on the
+CUDA device unless given ``device=``; without a GPU they raise.  The
+fused lookup and fused MLP kernels are hand-written CUDA
+(``csrc/fused_mlp.cu``), built with ``nvcc`` at first use.
+
+- ``repro_torch.open(path)``           — load a store saved by either
+                                         package (the reference's v2
+                                         directory layout).
+- ``repro_torch.build(table, config)`` — build a single store.
+- ``store.query()...execute()``        — the plan-based query layer.
 """
 
+from repro_torch.api.entry import build, open  # noqa: F401,A004
 from repro_torch.core import (  # noqa: F401
     DeepMappingConfig,
     DeepMappingStore,

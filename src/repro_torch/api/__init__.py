@@ -1,1 +1,33 @@
-"""The port's query-layer types (only ``plan.ExplainStats`` so far)."""
+"""Unified store API of the port: the :class:`MappingStore` protocol,
+the plan-based streaming query layer, and the ``repro_torch.open`` /
+``repro_torch.build`` entrypoints — ``repro.api`` without the
+federation (ROADMAP item M8).
+
+Store implementations (``repro_torch.core``) subclass
+:class:`MappingStore`; this package never imports them at module level
+(they import us), so the dependency direction stays acyclic.
+"""
+
+from repro_torch.api.cache import PlanCache, plan_fingerprint  # noqa: F401
+from repro_torch.api.entry import build, open  # noqa: F401,A004
+from repro_torch.api.executor import (  # noqa: F401
+    MorselResult,
+    execute_plan,
+    execute_plan_staged,
+    execute_plans,
+    next_morsel_rows,
+    stream_plan,
+)
+from repro_torch.api.plan import (  # noqa: F401
+    AggregateResult,
+    AggSpec,
+    ExplainStats,
+    JoinSpec,
+    OperatorStats,
+    Predicate,
+    QueryPlan,
+    QueryResult,
+    evaluate_predicates,
+)
+from repro_torch.api.protocol import CONFORMANCE_METHODS, MappingStore  # noqa: F401
+from repro_torch.api.query import Query  # noqa: F401

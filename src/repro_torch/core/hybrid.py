@@ -14,9 +14,17 @@ A :class:`DeepMappingStore` owns:
 
 Eq. 1 of the paper is :meth:`compression_ratio`.  A store is built by
 training a model on the table, or from given weights (``spec`` +
-``params``); save/load and the query layer come with later slices, and
-the store is a plain class (the reference's ``MappingStore`` protocol
-comes with the query layer).
+``params``), or loaded from the reference's v2 directory layout
+(:meth:`DeepMappingStore.load`, ``repro_torch.open``).  It is a
+:class:`~repro_torch.api.protocol.MappingStore`: ``store.query()`` plans
+run through the streaming executor, and a ``where`` conjunction ships
+its predicate code tables into the fused lookup kernel (K1), which
+returns a match bit per key.
+
+Modification semantics follow the paper exactly: inserts/updates/deletes
+are materialized in the auxiliary structures without touching ``M``;
+:meth:`should_retrain` triggers lazily once modified bytes exceed a
+threshold.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api.plan import ExplainStats
+from repro_torch.api.plan import ExplainStats, agg_partials, fold_agg_partials
+from repro_torch.api.protocol import MappingStore
 from repro_torch.core import model as model_lib
 from repro_torch.core import trainer as trainer_lib
 from repro_torch.core.aux_table import AuxTable
@@ -38,6 +47,7 @@ from repro_torch.core.inference import InferenceEngine
 from repro_torch.core.model import MLPSpec
 from repro_torch.core.table import Table
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ref import MAX_PREDS
 from repro_torch.storage import MemoryPool
 
 
@@ -70,7 +80,9 @@ class DeepMappingConfig:
     use_kernels: bool = True
 
 
-#: Device chunks in flight ahead of the host half.
+#: Device chunks in flight ahead of the host half.  Bounds device
+#: residency for huge scan/range batches (the window slides forward as
+#: chunks are collected) while still double-buffering the pipeline.
 DISPATCH_WINDOW = 2
 
 
@@ -82,14 +94,21 @@ class _PendingLookup:
     time, which tops the window up as it drains."""
 
     keys: np.ndarray
-    wanted: Tuple[str, ...]            # heads to evaluate
+    wanted: Tuple[str, ...]            # heads to evaluate (selected + predicate)
+    decode: Tuple[str, ...]            # columns to decode (selected only)
     skipped: Tuple[str, ...]
+    preds: tuple                       # [(wanted idx, code table, describe), ...]
     tickets: list                      # [(start, InferTicket), ...] in flight
     next_start: int                    # first key offset not yet dispatched
     dispatch_s: float
+    #: ((column, bool code table), ...) shipped to the engine so the
+    #: fused kernel evaluates the predicate conjunction in-kernel: one
+    #: table per predicate column (its predicates ANDed), none when the
+    #: columns outnumber the kernel's ``MAX_PREDS`` slots.
+    kernel_tables: tuple = ()
 
 
-class DeepMappingStore:
+class DeepMappingStore(MappingStore):
     """Hybrid learned KV store for one relation (single packed key)."""
 
     def __init__(
@@ -117,7 +136,6 @@ class DeepMappingStore:
         self.config = config
         self.modified_bytes = 0
         self._bytes_per_row = raw_bytes / max(1, num_rows)
-        self._mutations = 0
         # Lazy — build() attaches the warm engine it evaluated T_aux with.
         self._engine: Optional[InferenceEngine] = None
 
@@ -132,13 +150,6 @@ class DeepMappingStore:
         device word cache) is refreshed to this store's."""
         engine.bind_vexist(self.vexist)
         self._engine = engine
-
-    def mutation_version(self) -> int:
-        """Counter bumped by every insert/delete/update."""
-        return self._mutations
-
-    def _note_mutation(self) -> None:
-        self._mutations += 1
 
     # ------------------------------------------------------------------ build
     @classmethod
@@ -246,20 +257,43 @@ class DeepMappingStore:
         return self.spec.tasks
 
     def _dispatch_lookup(
-        self, keys: np.ndarray, columns: Optional[Tuple[str, ...]] = None
+        self,
+        keys: np.ndarray,
+        columns: Optional[Tuple[str, ...]] = None,
+        fanout: Optional[bool] = None,
+        predicates: tuple = (),
+        keys_exist: bool = False,
+        on_error: str = "raise",
     ) -> _PendingLookup:
         """Stage 1 of Algorithm 1: enqueue device inference (+ fused
-        existence test) for the first chunks of the batch and return.  At
-        most ``DISPATCH_WINDOW`` chunks are in flight; collect tops the
-        window up."""
+        existence test) for the first chunks of the batch and return.
+        The host half runs in :meth:`_collect_lookup`; a caller that
+        dispatches batch *i+1* before collecting batch *i* overlaps
+        device inference with host aux-merge + decode.  At most
+        ``DISPATCH_WINDOW`` chunks are in flight (collect tops the
+        window up), so a full-relation scan never pins the whole key
+        set on device.  ``fanout`` is accepted for protocol parity
+        (nothing to fan out here).
+
+        ``predicates`` are pushed below decode: each compiles here to a
+        boolean *code table* over the column's decode map (one
+        vectorized evaluation per distinct value, not per row), the
+        predicate head joins the inference task set even when the
+        projection excludes it, and at collect time rows are filtered
+        on their aux-corrected argmax codes — non-matching rows are
+        never decoded.  ``keys_exist`` is accepted for hook parity (the
+        fused existence test is already device-cheap here); so is
+        ``on_error`` — a single-owner store has no healthy subset to
+        degrade to, so the executor owns its partial fallback."""
         keys = np.asarray(keys, dtype=np.int64)
         t0 = time.perf_counter()
-        all_tasks = self.spec.tasks
-        wanted = tuple(t for t in all_tasks if columns is None or t in columns)
-        skipped = tuple(t for t in all_tasks if t not in wanted)
+        selected, wanted, skipped, preds, ktables = self._plan_lookup(
+            columns, predicates
+        )
         pending = _PendingLookup(
-            keys=keys, wanted=wanted, skipped=skipped, tickets=[],
-            next_start=0, dispatch_s=0.0,
+            keys=keys, wanted=wanted, decode=selected, skipped=skipped,
+            preds=preds, tickets=[], next_start=0, dispatch_s=0.0,
+            kernel_tables=ktables,
         )
         if keys.shape[0] and wanted:
             while (
@@ -270,43 +304,120 @@ class DeepMappingStore:
         pending.dispatch_s = time.perf_counter() - t0
         return pending
 
+    def _plan_lookup(
+        self, columns: Optional[Tuple[str, ...]], predicates: tuple
+    ) -> tuple:
+        """Shared planning half of :meth:`_dispatch_lookup`: resolve the
+        projection/predicate head sets and compile the predicate code
+        tables once.  Returns ``(selected, wanted, skipped, preds,
+        kernel_tables)`` where ``kernel_tables`` pairs each predicate
+        column with the AND of its predicates' boolean tables for the
+        in-kernel filter path (empty when the columns outnumber
+        ``MAX_PREDS``: the host then filters every row)."""
+        all_tasks = self.spec.tasks
+        selected = tuple(t for t in all_tasks if columns is None or t in columns)
+        pred_cols = frozenset(p.column for p in predicates)
+        wanted = tuple(
+            t for t in all_tasks if t in pred_cols or t in selected
+        )
+        skipped = tuple(t for t in all_tasks if t not in wanted)
+        preds = tuple(
+            (wanted.index(p.column), self._pred_table(p), p.describe())
+            for p in predicates
+        )
+        by_column: Dict[str, np.ndarray] = {}
+        for p, (_, table, _) in zip(predicates, preds):
+            prev = by_column.get(p.column)
+            by_column[p.column] = table if prev is None else prev & table
+        ktables = tuple(by_column.items()) if len(by_column) <= MAX_PREDS else ()
+        return selected, wanted, skipped, preds, ktables
+
+    def _pred_table(self, pred) -> np.ndarray:
+        """Memoized boolean code table for one predicate (see
+        ``Predicate.code_table``), resident in the store's
+        :class:`~repro_torch.api.cache.PlanCache`: a morselized plan
+        dispatches per chunk, but the full-vocabulary predicate
+        evaluation is paid once per (predicate, decode map), not per
+        morsel, and survives across repeated plans.  Invalidated by the
+        mutation version AND decode-map identity (``extend()`` swaps in
+        a new array); benign race under the shard fan-out — worst case
+        is one duplicate compute."""
+        codec = self.codecs[pred.column]
+        return self.plan_cache().pred_table(
+            pred, codec.decode_map, self.mutation_version()
+        )
+
     def _dispatch_next_chunk(self, pending: _PendingLookup) -> None:
         bs = self.config.inference_batch
         start = pending.next_start
         pending.tickets.append((
             start,
             self.engine.dispatch(
-                pending.keys[start : start + bs], pending.wanted, want_exists=True,
+                pending.keys[start : start + bs], pending.wanted,
+                want_exists=True,
+                pred_tables=pending.kernel_tables or None,
             ),
         ))
         pending.next_start = min(start + bs, pending.keys.shape[0])
 
+    def supports_kernel_filter(self, predicates: tuple = ()) -> bool:
+        """True when ``predicates`` would be evaluated in-kernel: every
+        predicate column is a model head, the columns fit the kernel's
+        ``MAX_PREDS`` table slots, and the full wanted head set fits the
+        resident ``fused`` tier (the streamed and jit tiers filter on the
+        host).  Checked per plan by the executor to skip its host
+        ``Filter`` stage."""
+        if not self.config.use_kernels or not predicates:
+            return False
+        if any(p.column not in self.spec.tasks for p in predicates):
+            return False
+        if len({p.column for p in predicates}) > MAX_PREDS:
+            return False
+        return self.engine.kernel_filter_capable(self.spec.tasks)
+
     def _collect_lookup(
         self, pending: _PendingLookup
-    ) -> Tuple[Dict[str, np.ndarray], np.ndarray, ExplainStats]:
-        """Stage 2 of Algorithm 1: per chunk, copy the device result back,
-        apply the aux-table override and decode — while later chunks keep
-        executing on the device.  Returns ``(values, exists, stats)``."""
-        keys, wanted = pending.keys, pending.wanted
+    ) -> Tuple[Dict[str, np.ndarray], np.ndarray, Optional[np.ndarray], ExplainStats]:
+        """Stage 2 of Algorithm 1: per chunk, block on the device
+        result, apply the aux-table override, filter on argmax codes
+        (value-predicate pushdown), and decode the surviving rows —
+        while later chunks keep executing on the device.  Returns
+        ``(values, exists, match, stats)``; ``match`` is ``None``
+        without predicates."""
+        keys, wanted, skipped = pending.keys, pending.wanted, pending.skipped
+        decode_cols, preds = pending.decode, pending.preds
         all_tasks = self.spec.tasks
         n_chunks = max(
             1, -(-keys.shape[0] // self.config.inference_batch)
         ) if pending.tickets else 0
         fused = bool(pending.tickets) and pending.tickets[0][1].path == "fused"
+        kfilter = self._kernel_filtering(pending)
         stats = ExplainStats(
             heads_evaluated=wanted,
-            heads_skipped=pending.skipped,
-            columns_decoded=wanted,
-            columns_skipped=pending.skipped,
+            heads_skipped=skipped,
+            columns_decoded=decode_cols,
+            columns_skipped=tuple(t for t in all_tasks if t not in decode_cols),
+            predicates=tuple(d for _, _, d in preds),
             plan=(
                 f"infer[{len(wanted)}/{len(all_tasks)} heads,"
                 f"{pending.tickets[0][1].path if pending.tickets else 'none'}]",
                 "exist[fused]" if fused else "exist",
                 "aux_merge",
-                f"decode[{','.join(wanted)}]",
+            )
+            + (
+                (
+                    f"filter[{'kernel,' if kfilter else ''}"
+                    f"{','.join(d for _, _, d in preds)}]",
+                )
+                if preds
+                else ()
+            )
+            + (
+                f"decode[{','.join(decode_cols)}]",
                 f"pipeline[{max(1, n_chunks)} chunks]",
             ),
         )
+        stats.kernel_filtered = kfilter
         stats.infer_s = pending.dispatch_s
 
         if not pending.tickets:
@@ -317,18 +428,79 @@ class DeepMappingStore:
             t2 = time.perf_counter()
             values = {
                 t: self.codecs[t].decode(np.zeros(keys.shape[0], dtype=np.int32))
-                for t in wanted
+                for t in decode_cols
             }
             stats.exist_s = t2 - t1
             stats.decode_s = time.perf_counter() - t2
-            return values, exists, stats
+            return values, exists, exists.copy() if preds else None, stats
 
-        task_idx = [all_tasks.index(t) for t in wanted]
-        exists_parts = []
-        value_parts = {t: [] for t in wanted}
+        dec_idx = [wanted.index(t) for t in decode_cols]
+        exists_parts, match_parts = [], []
+        value_parts = {t: [] for t in decode_cols}
+        for codes, exists, match in self._iter_corrected_chunks(pending, stats):
+            t5 = time.perf_counter()
+            if match is None:
+                # line 13: decode — selected columns only.
+                for t, wi in zip(decode_cols, dec_idx):
+                    safe = np.where(exists, codes[:, wi], 0)
+                    value_parts[t].append(self.codecs[t].decode(safe))
+                stats.rows_decoded += int(exists.shape[0])
+            else:
+                # line 13: decode ONLY the matching rows.
+                hit = np.flatnonzero(match)
+                for t, wi in zip(decode_cols, dec_idx):
+                    codec = self.codecs[t]
+                    out = np.zeros(exists.shape[0], dtype=codec.decode_map.dtype)
+                    if hit.size:
+                        out[hit] = codec.decode(codes[hit, wi])
+                    value_parts[t].append(out)
+                stats.rows_decoded += int(hit.size)
+                match_parts.append(match)
+            stats.decode_s += time.perf_counter() - t5
+            exists_parts.append(exists)
+
+        exists = (
+            exists_parts[0]
+            if len(exists_parts) == 1
+            else np.concatenate(exists_parts)
+        )
+        match = None
+        if preds:
+            match = (
+                match_parts[0]
+                if len(match_parts) == 1
+                else np.concatenate(match_parts)
+            )
+        values = {
+            t: (parts[0] if len(parts) == 1 else np.concatenate(parts))
+            for t, parts in value_parts.items()
+        }
+        return values, exists, match, stats
+
+    @staticmethod
+    def _kernel_filtering(pending: _PendingLookup) -> bool:
+        """True when the first dispatched chunk asked K1 for match bits;
+        ``_iter_corrected_chunks`` clears ``kernel_filtered`` for any
+        chunk that came back without them."""
+        if not (pending.preds and pending.tickets):
+            return False
+        ticket = pending.tickets[0][1]
+        return ticket.path == "fused" and ticket.match_dev is not None
+
+    def _iter_corrected_chunks(self, pending: _PendingLookup, stats: ExplainStats):
+        """Yield ``(codes, exists, match)`` per chunk of a pending
+        lookup — the shared front half of Algorithm 1 (device collect,
+        existence fallback, aux override, predicate code-table filter)
+        WITHOUT the decode tail.  ``codes`` are the aux-corrected argmax
+        codes ``(rows, len(wanted))``; ``match`` is ``None`` without
+        predicates.  The aggregate path consumes these directly: for
+        existing rows the corrected codes are exact (the aux table
+        overrides every model miss), so any reduction over them equals
+        the same reduction over decoded values."""
+        keys, preds = pending.keys, pending.preds
+        task_idx = [self.spec.tasks.index(t) for t in pending.wanted]
         while pending.tickets:
             _, ticket = pending.tickets.pop(0)
-            # keep the device window full before blocking on this chunk
             t0 = time.perf_counter()
             while (
                 len(pending.tickets) < DISPATCH_WINDOW - 1
@@ -336,41 +508,166 @@ class DeepMappingStore:
             ):
                 self._dispatch_next_chunk(pending)
             t1 = time.perf_counter()
-            stats.infer_s += t1 - t0
-            pred, exists = self.engine.collect(ticket)      # line 3 (inference)
+            codes, exists = self.engine.collect(ticket)
             t2 = time.perf_counter()
-            if exists is None:                               # line 5 (existence)
+            if exists is None:
                 exists = self.vexist.test(ticket.keys)
             t3 = time.perf_counter()
-            # line 6-8: aux override for existing keys only.  T_aux rows
-            # carry codes for ALL tasks; project to the evaluated ones.
             exist_idx = np.flatnonzero(exists)
             found, aux_codes = self.aux.get(ticket.keys[exist_idx])
-            pred[exist_idx[found]] = aux_codes[found][:, task_idx]
+            codes[exist_idx[found]] = aux_codes[found][:, task_idx]
             t4 = time.perf_counter()
-            stats.infer_s += t2 - t1
+            stats.infer_s += (t1 - t0) + (t2 - t1)
             stats.exist_s += t3 - t2
             stats.aux_s += t4 - t3
-            # line 13: decode
-            for wi, t in enumerate(wanted):
-                safe = np.where(exists, pred[:, wi], 0)
-                value_parts[t].append(self.codecs[t].decode(safe))
-            stats.rows_decoded += int(exists.shape[0])
-            stats.decode_s += time.perf_counter() - t4
-            exists_parts.append(exists)
+            match = None
+            # Predicate filter on aux-corrected argmax codes: one boolean
+            # gather per predicate, BEFORE any decode.
+            if preds:
+                if ticket.match is not None:
+                    # In-kernel filter: the fused kernel already ANDed
+                    # the predicate code tables over the model codes and
+                    # exist bits; only the (few) aux-overridden rows can
+                    # have changed codes, so re-evaluate just those on
+                    # their corrected codes via the full host tables.
+                    match = ticket.match
+                    aux_rows = exist_idx[found]
+                    if aux_rows.size:
+                        patched = np.ones(aux_rows.shape[0], dtype=bool)
+                        for wi, table, _ in preds:
+                            patched &= table[codes[aux_rows, wi]]
+                        match[aux_rows] = patched
+                else:
+                    stats.kernel_filtered = False
+                    match = exists.copy()
+                    for wi, table, _ in preds:
+                        codes_w = np.where(exists, codes[:, wi], 0)
+                        match &= table[codes_w]
+                stats.filter_s += time.perf_counter() - t4
+                stats.rows_matched += int(match.sum())
+            yield codes, exists, match
 
-        exists = exists_parts[0] if len(exists_parts) == 1 else np.concatenate(exists_parts)
-        values = {
-            t: (parts[0] if len(parts) == 1 else np.concatenate(parts))
-            for t, parts in value_parts.items()
-        }
-        return values, exists, stats
+    def _collect_aggregate(self, pending: _PendingLookup, group_by, aggregates):
+        """Code-space ``group_by(...).agg(...)``: consume aux-corrected
+        argmax codes, never rows.
+
+        Rows group by their raw code vectors (mixed-radix packed over
+        the codec cardinalities); ``count`` is a ``bincount`` over the
+        packed codes, ``sum``/``min``/``max`` gather per-row values
+        through the cached code→value tables
+        (:meth:`~repro_torch.api.cache.PlanCache.agg_table` — the decode map
+        cast once per vocabulary, version-fenced like the predicate
+        tables).  Only the *distinct group labels* are decoded, so
+        ``rows_decoded`` stays 0 no matter how many rows aggregate —
+        the below-decode claim the TPC-H harness asserts.  State keys
+        are decoded group values, mergeable across shards/members with
+        independent codecs."""
+        keys, wanted, preds = pending.keys, pending.wanted, pending.preds
+        all_tasks = self.spec.tasks
+        gidx = [wanted.index(c) for c in group_by]
+        gdims = [self.codecs[c].cardinality for c in group_by]
+        specs = []
+        for spec in aggregates:
+            if spec.column is None:
+                specs.append((None, None))
+            else:
+                table = self.plan_cache().agg_table(
+                    spec.column,
+                    self.codecs[spec.column].decode_map,
+                    self.mutation_version(),
+                )
+                specs.append((wanted.index(spec.column), table))
+        n_chunks = max(
+            1, -(-keys.shape[0] // self.config.inference_batch)
+        ) if pending.tickets else 0
+        kfilter = self._kernel_filtering(pending)
+        stats = ExplainStats(
+            heads_evaluated=wanted,
+            heads_skipped=pending.skipped,
+            columns_skipped=tuple(t for t in all_tasks if t not in wanted),
+            predicates=tuple(d for _, _, d in preds),
+            plan=(
+                f"infer[{len(wanted)}/{len(all_tasks)} heads,"
+                f"{pending.tickets[0][1].path if pending.tickets else 'none'}]",
+                "exist",
+                "aux_merge",
+            )
+            + (
+                (
+                    f"filter[{'kernel,' if kfilter else ''}"
+                    f"{','.join(d for _, _, d in preds)}]",
+                )
+                if preds
+                else ()
+            )
+            + (
+                f"aggregate[code,{len(group_by)} keys,{len(aggregates)} aggs]",
+                f"pipeline[{max(1, n_chunks)} chunks]",
+            ),
+        )
+        stats.kernel_filtered = kfilter
+        stats.infer_s = pending.dispatch_s
+        state: Dict[tuple, list] = {}
+
+        def fold(codes: Optional[np.ndarray], sel: np.ndarray) -> None:
+            """Fold one chunk's selected rows (code-space) into state."""
+            t5 = time.perf_counter()
+            if sel.size:
+                if gidx:
+                    if len(gidx) > 1:
+                        packed = np.ravel_multi_index(
+                            [codes[sel, wi] for wi in gidx], gdims
+                        )
+                    else:
+                        packed = codes[sel, gidx[0]]
+                    ug, ginv = np.unique(packed, return_inverse=True)
+                    coords = np.unravel_index(ug, gdims)
+                    # decode per DISTINCT group, not per row: this is
+                    # label materialization, not row decode
+                    labels = [
+                        self.codecs[c].decode(np.asarray(coord)).tolist()
+                        for c, coord in zip(group_by, coords)
+                    ]
+                    group_tuples = list(zip(*labels))
+                else:
+                    ug = np.zeros(1, dtype=np.int64)
+                    ginv = np.zeros(sel.size, dtype=np.int64)
+                    group_tuples = [()]
+                value_arrays = [
+                    None if table is None else table[codes[sel, wi]]
+                    for wi, table in specs
+                ]
+                partials = agg_partials(aggregates, ginv, len(ug), value_arrays)
+                fold_agg_partials(state, group_tuples, aggregates, partials)
+            stats.agg_s += time.perf_counter() - t5
+
+        if not pending.tickets:
+            # Zero keys, or a count-only global aggregate with no
+            # predicate heads: host existence test answers everything.
+            t1 = time.perf_counter()
+            exists = self.vexist.test(keys)
+            stats.exist_s = time.perf_counter() - t1
+            fold(None, np.flatnonzero(exists))
+            return state, stats
+
+        for codes, exists, match in self._iter_corrected_chunks(pending, stats):
+            sel = np.flatnonzero(exists if match is None else match)
+            fold(codes, sel)
+        return state, stats
 
     def _lookup_with_stats(
-        self, keys: np.ndarray, columns: Optional[Tuple[str, ...]] = None
+        self,
+        keys: np.ndarray,
+        columns: Optional[Tuple[str, ...]] = None,
+        fanout: Optional[bool] = None,
     ) -> Tuple[Dict[str, np.ndarray], np.ndarray, ExplainStats]:
-        """Algorithm 1 with projection pushdown and per-call stats."""
-        return self._collect_lookup(self._dispatch_lookup(keys, columns))
+        """Algorithm 1 with projection pushdown and per-call stats —
+        the dispatch/collect pair run back-to-back (all chunks' device
+        work enqueued up front, host half trailing chunk by chunk)."""
+        values, exists, _, stats = self._collect_lookup(
+            self._dispatch_lookup(keys, columns, fanout)
+        )
+        return values, exists, stats
 
     def lookup(
         self, keys: np.ndarray, columns: Optional[Tuple[str, ...]] = None
@@ -380,7 +677,9 @@ class DeepMappingStore:
         Returns ``(values, exists)``: per-column decoded arrays (rows
         where ``exists`` is False are NULL — filled with the column's
         code-0 value, callers must respect the mask) plus the existence
-        mask.
+        mask.  For per-call stats use ``store.query(...).execute().explain``
+        (the ``last_stats`` side-channel was removed — the metrics
+        registry and ``ExplainStats`` supersede it).
         """
         values, exists, _stats = self._lookup_with_stats(keys, columns)
         return values, exists
@@ -458,6 +757,46 @@ class DeepMappingStore:
             self.aux.update(keys[wrong], codes[wrong])   # lines 7-11
         self.modified_bytes += int(keys.shape[0] * self._bytes_per_row)
         self._note_mutation()
+
+    def _range_keys(self, lo: int, hi: Optional[int]) -> np.ndarray:
+        """Existence-index range filter (§IV-E) — key source for the
+        protocol's ``range_lookup``/``scan`` and the plan executor."""
+        return self.vexist.keys_in_range(lo, hi)
+
+    def should_retrain(self) -> bool:
+        thr = self.config.retrain_after_modified_bytes
+        return thr is not None and self.modified_bytes >= thr
+
+    def materialize(self) -> Table:
+        """Reconstruct the full logical table (used by retrain)."""
+        keys, values = self.scan()
+        return Table(keys=keys, columns=values)
+
+    def retrain(self, verbose: bool = False) -> "DeepMappingStore":
+        """Rebuild model + auxiliary structures on current logical data,
+        on this store's device (paper: lazily, offline/background/non-peak)."""
+        return DeepMappingStore.build(
+            self.materialize(), self.config, pool=self.aux.pool, verbose=verbose,
+            device=self.device,
+        )
+
+    # ---------------------------------------------------------- persistence
+    def save(self, path: str) -> None:
+        """Protocol persistence — the reference's v2 directory layout
+        (``core.serialize``; atomic tmp+rename)."""
+        from repro_torch.core import serialize  # local: serialize imports us
+
+        serialize.save_store(self, path)
+
+    @classmethod
+    def load(
+        cls, path: str, pool: Optional[MemoryPool] = None, device: DeviceLike = None
+    ) -> "DeepMappingStore":
+        """Open a store saved by either package onto ``device`` (CUDA by
+        default); see :func:`~repro_torch.core.serialize.load_store`."""
+        from repro_torch.core import serialize
+
+        return serialize.load_store(path, pool=pool, device=device)
 
     # ------------------------------------------------------------- accounting
     def size_breakdown(self) -> Dict[str, int]:

@@ -44,6 +44,7 @@ from repro_torch import obs
 from repro_torch.core import model as model_lib
 from repro_torch.core.model import MLPSpec
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.fault import injection as fault_injection
 from repro_torch.kernels import fused_mlp as fm_kernel
 from repro_torch.kernels import ops as kops
 
@@ -356,6 +357,10 @@ class InferenceEngine:
         if n == 0 or not tasks:
             return InferTicket(n=n, tasks=tasks, path="empty", keys=keys,
                                want_exists=want_exists)
+        # Fault-injection site: after the zero-length early-out so the
+        # executor's typed-empty probes (used to build placeholder
+        # columns in degraded mode) are never themselves failed.
+        fault_injection.maybe_fail("engine_dispatch")
         self.stats.bump("dispatches")
         # Device result columns follow spec order; collect() permutes
         # back to the requested order.

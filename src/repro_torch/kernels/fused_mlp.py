@@ -13,7 +13,8 @@ for tensors on the CPU it runs the plain version in
 ``repro_torch.kernels.ref``.  There is no fallback between the two:
 a build or launch failure raises.  The source is built at first use by
 ``repro_torch.kernels.build``.  Each call function counts its launches
-in ``<function>.launches``.
+in ``<function>.launches``; ``fused_lookup_call.pred_launches`` counts
+K1's launches with predicate tables.
 
 :func:`tile_plan` computes each launch's tiling and layer schedule from
 the spec alone; the C entries only check it.  ``_fused_mlp`` and
@@ -38,7 +39,7 @@ SOURCE = "fused_mlp.cu"
 #: Kernel limits fixed by the C interface's by-value model descriptor.
 MAX_LAYERS = 64
 MAX_HEADS = 32
-MAX_PREDS = 8
+MAX_PREDS = ref.MAX_PREDS
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -474,6 +475,8 @@ def _fused_lookup(keys, pos_ops, words32, flat_weights, spec, tile_n, base_pad, 
         raise ValueError("in-kernel predicate filtering requires with_exists")
     if len(pred_tables) != len(pred_tasks):
         raise ValueError("one pred_task per pred_table")
+    if len(pred_tables) > MAX_PREDS:
+        raise ValueError(f"at most {MAX_PREDS} predicate tables per launch")
     if not keys.is_cuda:
         return ref.fused_lookup(
             keys, pos_ops, words32, flat_weights, spec, capacity,
@@ -486,8 +489,6 @@ def _fused_lookup(keys, pos_ops, words32, flat_weights, spec, tile_n, base_pad, 
         raise ValueError(f"pos_ops shape {tuple(pos_ops.shape)} != ({spec.width}, 2)")
     if with_exists:
         _check(words32, "words32", dev, torch.int32, 1)
-    if len(pred_tables) > MAX_PREDS:
-        raise ValueError(f"at most {MAX_PREDS} predicate tables per launch")
     cards = spec.card_map
     for tb, ti in zip(pred_tables, pred_tasks):
         _check(tb, "pred table", dev, torch.int32, 1)
@@ -515,7 +516,11 @@ def _fused_lookup(keys, pos_ops, words32, flat_weights, spec, tile_n, base_pad, 
         )
     _raise_on(err, lib, "fused_lookup", plan)
     fused_lookup_call.launches += 1
+    if pred_tables:
+        fused_lookup_call.pred_launches += 1
     return codes, exists, match
 
 
 fused_lookup_call.launches = 0
+#: The launches above that carried predicate tables (match bits out).
+fused_lookup_call.pred_launches = 0

@@ -23,6 +23,10 @@ import torch
 
 from repro_torch.core.model import MLPSpec, forward_digits
 
+#: Predicate tables one fused lookup takes, on the card and here alike
+#: (the C interface's by-value descriptor holds this many).
+MAX_PREDS = 8
+
 
 def ref_fused_mlp_logits(
     params: Dict, digits: torch.Tensor, spec: MLPSpec
@@ -161,7 +165,10 @@ def fused_lookup(
     """Plain version of the keys-in kernel, same contract: keys (N_pad,)
     int32 (padding -1), pos_ops (width, 2) int32, words32 an int32 view
     of the packed uint32 words.  Returns ``(codes (N_pad, m) int32,
-    exists (N_pad,) int32 | None, match (N_pad,) int32 | None)``."""
+    exists (N_pad,) int32 | None, match (N_pad,) int32 | None)``.
+    Takes at most ``MAX_PREDS`` predicate tables, as the kernel does."""
+    if len(pred_tables) > MAX_PREDS:
+        raise ValueError(f"at most {MAX_PREDS} predicate tables per launch")
     k = keys.to(torch.int64)
     in_cap = (k >= 0) & (k < int(capacity))
     safe = torch.where(in_cap, k, torch.zeros_like(k))

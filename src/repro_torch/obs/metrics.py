@@ -210,7 +210,7 @@ class MetricsRegistry:
     silently write one name with different types).  ``snapshot()``
     produces the JSON-able view the benchmarks embed into
     ``BENCH_*.json``; the Prometheus/Chrome exporters live in
-    the reference's ``repro.obs.export`` (not ported yet).
+    :mod:`repro_torch.obs.export`.
     """
 
     def __init__(self, enabled: bool = True):

@@ -1,7 +1,10 @@
 """Import hygiene and device defaults of the port.
 
-* ``repro_torch`` imports with ``jax`` blocked, and no module under
-  ``src/repro_torch`` imports ``jax`` or anything of ``repro``;
+* ``repro_torch`` imports with ``jax``, ``msgpack`` and ``zstandard``
+  blocked, and no module under ``src/repro_torch`` imports ``jax``,
+  anything of ``repro``, or ``msgpack``; ``zstandard`` appears only as
+  the optional import of ``storage/codecs.py`` (zlib stands in without
+  it);
 * entry points default to CUDA and raise when none is present (no CPU
   fallback); ``device="cpu"`` is the explicit plain path;
 * ``chip_smoke.py`` exits non-zero and prints no result without CUDA;
@@ -40,11 +43,27 @@ def _imports(path: Path):
             yield node.module
 
 
+def _optional_imports(path: Path):
+    """Modules imported inside ``try: ... except ImportError``."""
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and any(
+            isinstance(h.type, ast.Name) and h.type.id == "ImportError" for h in node.handlers
+        ):
+            for stmt in node.body:
+                if isinstance(stmt, ast.Import):
+                    yield from (a.name for a in stmt.names)
+
+
 @pytest.mark.parametrize("path", MODULES, ids=[str(p.relative_to(PKG)) for p in MODULES])
 def test_module_imports_neither_jax_nor_repro(path):
+    optional = set(_optional_imports(path))
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), f"{path.name} imports {name}"
+        if top == "zstandard":
+            assert path.relative_to(PKG) == Path("storage/codecs.py") and name in optional, (
+                f"{path.name} imports zstandard")
 
 
 def test_import_with_jax_blocked():
@@ -54,7 +73,8 @@ def test_import_with_jax_blocked():
     ]
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
+        "for m in ('jax', 'msgpack', 'zstandard'):\n"
+        "    sys.modules[m] = None\n"
         "import importlib, repro_torch\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
@@ -144,3 +164,12 @@ def test_module_scan_covers_this_slices_modules():
     names = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"train/optimizer.py", "kernels/bitvector.py", "kernels/build.py",
             "core/trainer.py"} <= names
+    assert {"core/serialize.py", "storage/msgpack_codec.py", "fault/errors.py",
+            "fault/injection.py", "obs/tracing.py", "obs/export.py", "api/cache.py",
+            "api/entry.py", "api/executor.py", "api/protocol.py", "api/query.py",
+            "api/routing.py"} <= names
+
+
+def test_chip_smoke_imports_none_of_the_forbidden_modules():
+    for name in _imports(ROOT / "chip_smoke.py"):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "repro", "msgpack", "zstandard"), name

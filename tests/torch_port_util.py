@@ -83,3 +83,56 @@ def assert_codes_close(got, want, marg):
     n = int(diff.any(axis=1).sum())
     assert n <= max(1, got.shape[0] // 100), n
     return n
+
+
+def store_pair(table, shared, private, epochs=8, use_pallas=False, seed=0):
+    """The same DeepMapping store built by both packages: the reference
+    trainer runs a few epochs on ``table``, and its weights (as numpy)
+    go to the reference's ``build`` (``use_pallas`` as given) and to the
+    port's (``use_kernels=True`` on the CPU, so the fused tier runs K1's
+    plain version).  Each package finds its own T_aux with its own
+    engine.  Returns ``(reference store, port store, numpy params)``."""
+    import jax
+
+    from repro.core import DeepMappingConfig as JConfig
+    from repro.core import DeepMappingStore as JStore
+    from repro.core import Table as JTable
+    from repro.core.encoding import KeyEncoder as JEncoder
+    from repro.core.encoding import build_codecs as j_build_codecs
+    from repro.core.trainer import TrainConfig, train
+    from repro_torch.core import DeepMappingConfig, DeepMappingStore, Table
+
+    enc = JEncoder(table.max_key, base=10)
+    codecs = j_build_codecs(table.columns)
+    kw = dict(base=10, width=enc.width, shared=tuple(shared),
+              private={c: tuple(private) for c in table.columns},
+              out_cards={c: codecs[c].cardinality for c in table.columns})
+    jspec, spec = JSpec(**kw), MLPSpec(**kw)
+    codes = np.stack([codecs[t].codes for t in jspec.tasks], axis=1)
+    params, _, _ = train(jspec, enc.digits(table.keys), codes,
+                         TrainConfig(epochs=epochs, batch_size=512, seed=seed))
+    params = jax.device_get(params)
+
+    def copy(cls):
+        return cls(keys=table.keys.copy(),
+                   columns={c: v.copy() for c, v in table.columns.items()})
+
+    jstore = JStore.build(copy(JTable), JConfig(shared=tuple(shared), private=tuple(private),
+                                                use_pallas=use_pallas),
+                          spec=jspec, params=params)
+    store = DeepMappingStore.build(copy(Table), DeepMappingConfig(shared=tuple(shared),
+                                                                  private=tuple(private)),
+                                   spec=spec, params=params_from_numpy(params, "cpu"),
+                                   device="cpu")
+    return jstore, store, params
+
+
+def assert_values_equal(got, want, exists=None):
+    """Same column set, dtypes and bytes (on ``exists`` rows if given)."""
+    assert set(got) == set(want)
+    for c in want:
+        g, w = np.asarray(got[c]), np.asarray(want[c])
+        if exists is not None:
+            g, w = g[exists], w[exists]
+        assert g.dtype == w.dtype, (c, g.dtype, w.dtype)
+        assert g.tobytes() == w.tobytes(), c
