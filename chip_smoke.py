@@ -56,7 +56,38 @@ on them against its plain PyTorch version on the card:
                 main store after its mutations.  K1 must run with
                 predicate tables and every ``where`` plan must report
                 ``kernel_filtered``;
-9. times      — kernel and plain-version times with CUDA events, the
+9. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
+                rows under the reference benchmark's DM-R config,
+                trained on the card through ``repro_torch.build``: every
+                key lossless, absent and out-of-capacity keys absent; the
+                residue periods found, epochs, memorized share, T_aux,
+                Eq. 1, per-column accuracy against the majority share,
+                the lookup's split; six scan and ``where`` plans against
+                their oracles and ``pushdown(False)``; saved and reopened
+                through ``repro_torch.open`` with the same answers; K1
+                (with and without predicate tables) and K2 on the store's
+                model and residue features against their plain versions;
+10. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
+                under DM-R, with two key choices: (key, credit rating),
+                whose packed domain fits int32 (K1), and (key, purchase
+                estimate), past int32 (the host-digits tier, K2); each
+                lossless on every row, unknown combinations absent; each
+                choice's kernel on its store's model against its plain
+                version;
+11. baselines — every AB/HB factory of the paper (§V-A3) on
+                ``customer_demographics`` and on SF1 ``orders``: exact on
+                200,000 present and 100,000 absent keys, saved, reopened
+                through ``repro_torch.open`` with the same answers, and a
+                flipped payload bit refused; size, Eq. 1 ratio, build
+                seconds and lookup keys/s beside the two DeepMapping
+                stores probed the same way.  Baselines are host code:
+                they build in a pool of spawned workers (never forked
+                from the process that holds the CUDA context), one per
+                core, started after the card's phases; each reopened
+                store's lookup is timed in the main process once at most
+                one worker is left (the array stores timed beside it are
+                timed again alone);
+12. times     — kernel and plain-version times with CUDA events, the
                 kernels' bounds, K1/K2 under each plan of the store's
                 model and on the store's heads under wider trunks (every
                 plan), one fp32 ``torch.matmul`` of the trunk's 256x256
@@ -64,10 +95,11 @@ on them against its plain PyTorch version on the card:
                 instantiation, and whole-table lookup throughput.
 
 Each kernel's launches are counted on every path that drives the port
-(phases 3 to 8), with the counts set to 0 just before each path and read
+(phases 3 to 11), with the counts set to 0 just before each path and read
 just after; K1's launches that carried predicate tables are counted
 apart.  The launches made to compare a kernel with its plain version
-(phase 2) and those of phase 9 do not count.
+(phase 2, and in phases 9 and 10 after their counts are read) and those
+of phase 12 do not count.
 Each phase prints one JSON line with its seconds (``phase_s``); any
 failed check raises (non-zero exit).  The last lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -84,7 +116,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -112,6 +146,19 @@ ROWS = 1_500_000
 #: The paper's epoch cap (``PAPER_STORE``'s TrainConfig); training may
 #: stop earlier on |Δloss| < 1e-4.
 TRAIN_EPOCHS = 200
+#: The reference benchmark's DM-R store (``benchmarks/common.py``): a
+#: smaller trunk, and residue features for the periods found at build;
+#: its TrainConfig is 60 epochs at batch 8,192 (early stop as default).
+DMR = {"shared": (128, 64), "private": (16,), "codec": "zstd",
+       "partition_bytes": 64 * 1024, "auto_residues": True}
+DMR_EPOCHS, DMR_BATCH = 60, 8192
+#: customer_demographics rows of the multikey phase: a prefix, cut for
+#: time (215,001 x 10,001 already passes int32, so the cut keeps the
+#: purchase-estimate choice past it).
+MK_ROWS = 240_000
+#: Probe of the baselines phase, the same for every store of a table:
+#: present keys sampled without replacement, and absent keys.
+PROBE_PRESENT, PROBE_ABSENT = 200_000, 100_000
 
 RECORD: dict = {}
 #: perf_counter at the end of the previous phase (the script's start for
@@ -205,8 +252,10 @@ def model_times(dev, seed: int, plans: bool) -> list:
     """K1 and K2 ms per 65,536-key launch on the MODELS, and K1's host
     time per launch, through the public calls of the ``repro_torch``
     package on ``sys.path``; with ``plans``, also under every plan that
-    fits, forced through the private helpers, and with the codes checked
-    equal across plans and between K1 and K2."""
+    fits, forced through the private helpers (medians of 5 calls, where
+    the default plan's are of 20: the slowest plans of the widest trunk
+    take about 0.1 s a call), and with the codes checked equal across
+    plans and between K1 and K2."""
     import numpy as np
     import torch
     from repro_torch.core import MLPSpec, init_params
@@ -257,10 +306,10 @@ def model_times(dev, seed: int, plans: bool) -> list:
                 row["by_plan"][f"{p.tile.name}/{p.schedule}/slab {p.slab}"] = {
                     "fused_lookup_ms": time_ms(
                         lambda: fm._fused_lookup(keys, pos, words, flat, spec, 256, base_pad,
-                                                 cap, plan=p)),
+                                                 cap, plan=p), reps=5, warmup=1),
                     "fused_mlp_ms": time_ms(
                         lambda: fm._fused_mlp(digits, flat, spec, 256, base_pad, pads, True,
-                                              plan=p)),
+                                              plan=p), reps=5, warmup=1),
                 }
         out.append(row)
     return out
@@ -293,6 +342,109 @@ def models_only(src: Path, seed: int) -> int:
     return 0
 
 
+def baseline_table(name: str, seed: int):
+    """The baselines phase's tables: TPC-DS ``customer_demographics`` in
+    full and TPC-H ``orders`` at SF1 (the ``train`` phase's table)."""
+    from repro_torch.data import customer_demographics_like, orders_like
+
+    if name == "customer_demographics":
+        return customer_demographics_like()
+    return orders_like(ROWS, seed=seed)
+
+
+def baseline_probe(table, seed: int):
+    """``(keys, present)``: PROBE_PRESENT keys of the table and
+    PROBE_ABSENT keys it lacks (between its keys, or past its largest),
+    shuffled; the same for every store built over ``table``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 19)
+    present = rng.choice(table.keys, PROBE_PRESENT, replace=False)
+    cand = rng.integers(0, 2 * table.max_key + 2, 4 * PROBE_ABSENT)
+    absent = cand[~np.isin(cand, table.keys)][:PROBE_ABSENT]
+    check(absent.size == PROBE_ABSENT, "not enough absent keys for the probe")
+    keys = np.concatenate([present, absent])
+    order = rng.permutation(keys.size)
+    return keys[order], (order < PROBE_PRESENT)
+
+
+def check_probe(label: str, table, keys, present, values, exists) -> None:
+    """Exact on the probe: present keys decode to their rows, absent
+    keys read as absent."""
+    import numpy as np
+
+    check(np.array_equal(exists, present), f"{label}: existence differs on the probe")
+    rows = np.searchsorted(table.keys, keys[present])
+    check(np.array_equal(table.keys[rows], keys[present]), f"{label}: probe rows not found")
+    for c, col in table.columns.items():
+        check(np.array_equal(values[c][present], col[rows]), f"{label}: column {c} differs")
+
+
+def answers_digest(values, exists) -> str:
+    """sha256 over a lookup's answers: existence, then each column's
+    name, dtype and bytes."""
+    h = hashlib.sha256(exists.tobytes())
+    for c in sorted(values):
+        h.update(f"{c}:{values[c].dtype.str}".encode())
+        h.update(values[c].tobytes())
+    return h.hexdigest()
+
+
+def baseline_job(table_name: str, factory: str, seed: int, out_dir: str) -> dict:
+    """One AB/HB store, in a worker process (host code: no CUDA): build
+    it with the reference's factory (timed), save it, refuse a copy with
+    one payload bit flipped, then look the probe up on the store as built
+    and check it exact.  The saved file (written atomically) stays for
+    the main process, which reopens it and times its lookup; the digest
+    of this lookup's answers lets it hold the reopened store byte for
+    byte against this one."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
+    from repro_torch.baselines import BASELINE_FACTORIES
+    from repro_torch.fault import IntegrityError
+
+    label = f"{factory} on {table_name}"
+    table = baseline_table(table_name, seed)
+    t0 = time.perf_counter()
+    store = BASELINE_FACTORIES[factory](table)
+    build_s = time.perf_counter() - t0
+    path = baseline_file(out_dir, table_name, factory)
+    t0 = time.perf_counter()
+    store.save(path)
+    save_s = time.perf_counter() - t0
+    blob = bytearray(Path(path).read_bytes())
+    blob[len(blob) // 2] ^= 0x01
+    Path(path + ".flipped").write_bytes(bytes(blob))
+    integrity_error = None
+    try:
+        repro_torch.open(path + ".flipped")
+    except IntegrityError as err:
+        integrity_error = str(err)
+    check(integrity_error is not None, f"{label}: a file with a flipped bit opened")
+    os.remove(path + ".flipped")
+    keys, present = baseline_probe(table, seed)
+    values, exists = store.lookup(keys)
+    check_probe(label, table, keys, present, values, exists)
+    return {"table": table_name, "store": factory, "kind": store.kind, "codec": store.codec_name,
+            "type": type(store).__name__, "rows": table.num_rows,
+            "partitions": len(store._partitions), "size_bytes": store.size_bytes(),
+            "size_breakdown": store.size_breakdown(),
+            "ratio": store.size_bytes() / table.raw_size_bytes(), "file_bytes": os.path.getsize(path),
+            "build_s": build_s, "save_s": save_s, "integrity_error": integrity_error,
+            "digest": answers_digest(values, exists)}
+
+
+def baseline_file(out_dir: str, table_name: str, factory: str) -> str:
+    return os.path.join(out_dir, f"{table_name}_{factory}.bin")
+
+
+#: The baseline stores, most expensive first (the pool takes them in
+#: this order): every factory on both tables.
+BASELINE_JOBS = tuple(
+    (t, f) for f in ("HBC-L", "HB", "HBC-Z", "ABC-L", "ABC-G", "ABC-D", "ABC-Z", "AB")
+    for t in ("customer_demographics", "orders"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -304,13 +456,22 @@ def main() -> int:
     if args.models_only:
         return models_only(args.src.resolve(), args.seed)
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401 — fails here when src/ is not beside the script
+
+    return smoke(args)
+
+
+def smoke(args) -> int:
+    """Every phase but the models-only mode (see the module docstring)."""
+    import numpy as np
+    import torch
+
     import repro_torch
     from repro_torch import storage
     from repro_torch.api import execute_plans
@@ -320,6 +481,8 @@ def main() -> int:
     )
     from repro_torch.core import trainer as trainer_lib
     from repro_torch.core.encoding import build_codecs
+    from repro_torch.core.multikey import MultiKeyMapping
+    from repro_torch.data import customer_demographics_like
     from repro_torch.data.tpch import orders_like
     from repro_torch.fault import IntegrityError
     from repro_torch.kernels import bitvector as bvk
@@ -401,20 +564,24 @@ def main() -> int:
     m = len(spec.tasks)
 
     # ------------------------------------------------------- 2. kernels
-    def digits_of(keys_t):
+    def key_digits(keys_t, mpos, base, mcap):
+        """The features K1 computes from keys: ``((k % mod) // div) % base``
+        per position, zero rows outside ``[0, mcap)``."""
         k = keys_t.long()
-        in_cap = (k >= 0) & (k < cap)
+        in_cap = (k >= 0) & (k < mcap)
         safe = torch.where(in_cap, k, torch.zeros_like(k))
-        d = torch.stack([((safe % int(md)) // int(dv)) % spec.base
-                         for md, dv in encoder.position_ops()], dim=1)
+        d = torch.stack([((safe % int(md)) // int(dv)) % base for md, dv in mpos], dim=1)
         return d.to(torch.int32).contiguous(), in_cap
 
-    def margins(digits):
+    def digits_of(keys_t):
+        return key_digits(keys_t, encoder.position_ops(), spec.base, cap)
+
+    def margins(digits, mflat=flat, mspec=spec):
         """Plain-side top-two margin per row and task (inf for card 1)."""
-        lg = ref._forward_flat(flat, spec, digits, emit_codes=False)
+        lg = ref._forward_flat(mflat, mspec, digits, emit_codes=False)
         out = []
-        for ti, t in enumerate(spec.tasks):
-            card = spec.card_map[t]
+        for ti, t in enumerate(mspec.tasks):
+            card = mspec.card_map[t]
             if card < 2:
                 out.append(torch.full((digits.shape[0],), float("inf"), device=dev))
                 continue
@@ -609,6 +776,69 @@ def main() -> int:
     check(tiles_seen == {t.name for t in fm.TILES}, f"coverage models took only {tiles_seen}")
     emit("kernels_vs_plain", cases=cases, max_abs_err=kern_err, margin_rows=margin_rows,
          logit_tol=LOGIT_TOL, margin_tol=MARGIN_TOL, plan_sweep=sweep, coverage=coverage)
+
+    def store_kernels_vs_plain(s, keys):
+        """K1 (where the store's key domain fits int32) and K2 on a trained
+        store's own weights, spec and key features (residue positions
+        included), on its first 256 and 65,536 ``keys``, against their
+        plain versions by the rule above: K1 with no predicate tables and
+        with one per head (up to ``ref.MAX_PREDS``), K2 codes and logits,
+        K1 codes equal to K2's.  Comparison launches: the correlated and
+        multikey phases call this after reading their paths' counts."""
+        eng = s.engine
+        mspec = s.spec
+        mflat, _ = eng._entry(mspec.tasks).flat()
+        mcap = s.encoder.capacity
+        mbase_pad = ops._round_up(mspec.base, ops.LANE)
+        pads = ops.card_pads(mspec)
+        keys_in = mcap <= 2**31 - 1  # K1's domain; K2 on host digits otherwise
+        out = []
+        for n in (256, 65536):
+            kh = np.asarray(keys[:n], dtype=np.int64)
+            if keys_in:
+                kt = eng._keys_dev(kh, n)
+                digits, in_cap = key_digits(kt, eng._pos_ops, mspec.base, mcap)
+            else:
+                inside = (kh >= 0) & (kh < mcap)
+                dp = np.zeros((n, s.encoder.width), dtype=np.int32)
+                dp[inside] = s.encoder.digits(kh[inside])
+                digits = torch.from_numpy(dp).to(dev)
+            marg = margins(digits, mflat, mspec)
+            c2 = fm.fused_mlp_call(digits, mflat, mspec, 256, mbase_pad, pads, True)
+            nd, _ = cmp_codes(c2, ref.fused_mlp(digits, mflat, mspec, True), marg)
+            row = {"n": n, "bucket": n, "kernel": "fused_lookup and fused_mlp" if keys_in
+                   else "fused_mlp", "fused_mlp_margin_rows": nd, "fused_mlp_max_abs_err": 0.0}
+            for a, b in zip(fm.fused_mlp_call(digits, mflat, mspec, 256, mbase_pad, pads, False),
+                            ref.fused_mlp(digits, mflat, mspec, False)):
+                torch.testing.assert_close(a, b, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+                row["fused_mlp_max_abs_err"] = max(row["fused_mlp_max_abs_err"],
+                                                   (a - b).abs().max().item())
+            kern_err["fused_mlp"] = max(kern_err["fused_mlp"], row["fused_mlp_max_abs_err"])
+            if keys_in:
+                mpos, mwords = eng._device_pos_ops(), eng._device_words()
+                tabs = tuple(
+                    torch.from_numpy((rng.random(ops._round_up(mspec.card_map[t], ops.LANE))
+                                      < 0.5).astype(np.int32)).to(dev)
+                    for t in mspec.tasks[:ref.MAX_PREDS])
+                for ptabs in ((), tabs):
+                    ptasks = tuple(range(len(ptabs)))
+                    got = fm.fused_lookup_call(kt, mpos, mwords, mflat, mspec, 256, mbase_pad,
+                                               mcap, ptabs, ptasks, True)
+                    want = ref.fused_lookup(kt, mpos, mwords, mflat, mspec, mcap, ptabs, ptasks,
+                                            True)
+                    nd, rows = cmp_codes(got[0], want[0], marg)
+                    ok = ~rows
+                    check(torch.equal(got[1], want[1]), "K1 exists differs from the plain version")
+                    if ptabs:
+                        check(torch.equal(got[2][ok], want[2][ok]), "K1 match differs")
+                    err = float((got[0][ok] - want[0][ok]).abs().max().item() if ok.any() else 0)
+                    kern_err["fused_lookup"] = max(kern_err["fused_lookup"], err)
+                    row[f"fused_lookup_preds_{len(ptabs)}_margin_rows"] = nd
+                    row[f"fused_lookup_preds_{len(ptabs)}_max_abs_err"] = err
+                    row["present"] = int(got[1].sum())
+                    check(torch.equal(got[0][in_cap], c2[in_cap]), "K1 and K2 codes differ")
+            out.append(row)
+        return out
 
     # ---------------------------------------------------- 3. bitvector
     # K3's path is its public entry point, bitvector_test, over the SF1
@@ -950,8 +1180,68 @@ def main() -> int:
             check(np.array_equal(np.asarray(res.aggregates[agg]), want),
                   f"{name}: {agg} differs from the oracle")
 
+    #: The oracles' comparisons (numpy, independent of the port's Predicate).
+    ops_ = {"==": lambda a, v: a == v, "!=": lambda a, v: a != v, "<": lambda a, v: a < v,
+            "<=": lambda a, v: a <= v, ">": lambda a, v: a > v, ">=": lambda a, v: a >= v,
+            "in": lambda a, v: np.isin(a, list(v))}
+
+    def described(name, d, okeys, ocols, lo_, hi_, qk_):
+        """(name, build(store) -> Query, oracle check) of a plan given as
+        a description: key source, where clauses, projection, group_by and
+        aggregates; the oracle evaluates the same description in numpy."""
+        def build_q(s):
+            q = s.query()
+            if d.get("select"):
+                q = q.select(*d["select"])
+            for c, op, v in d.get("where", ()):
+                q = q.where(c, op, v)
+            if d.get("aggs"):
+                q = q.group_by(*d.get("group", ())).agg(*d["aggs"])
+            if d["src"] == "scan":
+                return q.scan()
+            return q.where_range(lo_, hi_) if d["src"] == "range" else q.where_keys(qk_)
+
+        def oracle(res):
+            if d["src"] == "point":
+                r = np.searchsorted(okeys, qk_).clip(0, okeys.size - 1)
+                hit = okeys[r] == qk_
+                rows, keys = r[hit], qk_[hit]
+            else:
+                m = np.ones(okeys.size, bool) if d["src"] == "scan" \
+                    else (okeys >= lo_) & (okeys < hi_)
+                rows = np.flatnonzero(m)
+                keys = okeys[rows]
+            keep = np.ones(rows.size, bool)
+            for c, op, v in d.get("where", ()):
+                keep &= ops_[op](ocols[c][rows], v)
+            rows, keys = rows[keep], keys[keep]
+            if not d.get("aggs"):
+                check_rows(name, res, keys, {c: ocols[c][rows]
+                                             for c in (d.get("select") or ocols)})
+                return
+            group = d["group"]
+            labels = ocols[group[0]][rows].astype(str)
+            for g in group[1:]:
+                labels = np.char.add(np.char.add(labels, "|"), ocols[g][rows].astype(str))
+            u, inv = np.unique(labels, return_inverse=True)
+            want = {}
+            for a in d["aggs"]:
+                if a == "count":
+                    want["count"] = np.bincount(inv, minlength=u.size)
+                    continue
+                fn, col = a
+                v = ocols[col][rows].astype(np.int64)
+                want[f"{fn}({col})"] = np.array([getattr(np, fn)(v[inv == i])
+                                                 for i in range(u.size)])
+            check_groups(name, res, group, [tuple(x.split("|")) for x in u], want)
+            if d["aggs"] == ("count",):
+                check(res.explain.rows_decoded == 0, f"{name}: count-only decoded rows")
+        return name, build_q, oracle
+
     def plans_for(okeys, ocols, rows, prio, lo, hi, qk):
-        """(name, build(store) -> Query, oracle check) for the 9 plans."""
+        """(name, build(store) -> Query, oracle check) for the 9 plans: the
+        projected point plan (absent keys answered too) and the self-join
+        with oracles of their own, the others as descriptions."""
         def point(res):
             r = rows(qk)
             ex = r >= 0
@@ -959,22 +1249,6 @@ def main() -> int:
             for c in ("o_clerk", "o_orderstatus"):
                 check(np.array_equal(res.values[c][ex], ocols[c][r[ex]]),
                       f"point: {c} differs from the oracle")
-
-        def scan_where(res):
-            m = (ocols["o_orderpriority"] == prio) & np.isin(ocols["o_orderstatus"], ["F", "P"])
-            check_rows("scan_where", res, okeys[m], {"o_clerk": ocols["o_clerk"][m]})
-
-        def range_all(res):
-            m = (okeys >= lo) & (okeys < hi)
-            check_rows("range", res, okeys[m], {c: v[m] for c, v in ocols.items()})
-
-        def count_groups(res):
-            pairs = np.char.add(np.char.add(ocols["o_orderpriority"].astype(str), "|"),
-                                ocols["o_orderstatus"].astype(str))
-            u, n = np.unique(pairs, return_counts=True)
-            check_groups("count", res, ("o_orderpriority", "o_orderstatus"),
-                         [tuple(x.split("|")) for x in u], {"count": n})
-            check(res.explain.rows_decoded == 0, "count-only group_by decoded rows")
 
         jlo, jhi = lo, lo + (hi - lo) // 2
 
@@ -986,72 +1260,35 @@ def main() -> int:
                        {"o_clerk": ocols["o_clerk"][left][keep],
                         "o_orderpriority": ocols["o_orderpriority"][r[keep]]})
 
-        def point_where(res):
-            r = rows(qk)
-            hit = r >= 0
-            hit[hit] = ocols["o_clerk"][r[hit]] < 100
-            check_rows("point_where", res, qk[hit],
-                       {c: ocols[c][r[hit]] for c in ocols})
-
-        def agg_where(res):
-            m = ocols["o_orderpriority"] != prio
-            st_ = ocols["o_orderstatus"][m]
-            ck = ocols["o_clerk"][m].astype(np.int64)
-            u = np.unique(st_)
-            check_groups("agg_where", res, ("o_orderstatus",), [(x,) for x in u], {
-                "count": np.array([(st_ == x).sum() for x in u]),
-                "sum(o_clerk)": np.array([ck[st_ == x].sum() for x in u]),
-                "min(o_clerk)": np.array([ck[st_ == x].min() for x in u]),
-                "max(o_clerk)": np.array([ck[st_ == x].max() for x in u])})
-
-        def range_where(res):
-            m = (okeys >= lo) & (okeys < hi) & (ocols["o_orderstatus"] == "O")
-            check_rows("range_where", res, okeys[m],
-                       {"o_orderpriority": ocols["o_orderpriority"][m]})
-
         nine = (("o_clerk", ">=", 10), ("o_clerk", "<", 900), ("o_clerk", "!=", 50),
                 ("o_clerk", ">", 20), ("o_clerk", "<=", 800),
                 ("o_orderstatus", "!=", "P"), ("o_orderstatus", "in", ("F", "O")),
                 ("o_orderpriority", "!=", prio),
                 ("o_orderpriority", "in",
                  tuple(np.unique(ocols["o_orderpriority"])[:4].tolist())))
-        cmp = {">=": lambda a, v: a >= v, "<": lambda a, v: a < v,
-               "!=": lambda a, v: a != v, ">": lambda a, v: a > v,
-               "<=": lambda a, v: a <= v, "in": lambda a, v: np.isin(a, v)}
 
-        def point_where9(res):
-            r = rows(qk)
-            hit = r >= 0
-            for c, op, v in nine:
-                hit[hit] = cmp[op](ocols[c][r[hit]], v)
-            check_rows("point_where9", res, qk[hit],
-                       {c: ocols[c][r[hit]] for c in ocols})
-
-        def where9(s):
-            q = s.query()
-            for c, op, v in nine:
-                q = q.where(c, op, v)
-            return q.where_keys(qk)
+        def desc(name, d):
+            return described(name, d, okeys, ocols, lo, hi, qk)
 
         return [
             ("point", lambda s: s.query().select("o_clerk", "o_orderstatus").where_keys(qk),
              point),
-            ("scan_where", lambda s: s.query().select("o_clerk")
-             .where("o_orderpriority", "==", prio).where("o_orderstatus", "in", ("F", "P"))
-             .scan(), scan_where),
-            ("range", lambda s: s.query().where_range(lo, hi), range_all),
-            ("count", lambda s: s.query().group_by("o_orderpriority", "o_orderstatus")
-             .agg("count").scan(), count_groups),
+            desc("scan_where", {"src": "scan", "select": ("o_clerk",),
+                                "where": (("o_orderpriority", "==", prio),
+                                          ("o_orderstatus", "in", ("F", "P")))}),
+            desc("range", {"src": "range"}),
+            desc("count", {"src": "scan", "group": ("o_orderpriority", "o_orderstatus"),
+                           "aggs": ("count",)}),
             ("self_join", lambda s: s.query().select("o_clerk").where_range(jlo, jhi)
              .join(s, key=lambda k: k + 1, columns=("o_orderpriority",)), self_join),
-            ("point_where", lambda s: s.query().where("o_clerk", "<", 100).where_keys(qk),
-             point_where),
-            ("agg_where", lambda s: s.query().where("o_orderpriority", "!=", prio)
-             .group_by("o_orderstatus").agg("count", ("sum", "o_clerk"), ("min", "o_clerk"),
-                                            ("max", "o_clerk")).scan(), agg_where),
-            ("range_where", lambda s: s.query().select("o_orderpriority")
-             .where("o_orderstatus", "==", "O").where_range(lo, hi), range_where),
-            ("point_where9", where9, point_where9),
+            desc("point_where", {"src": "point", "where": (("o_clerk", "<", 100),)}),
+            desc("agg_where", {"src": "scan", "where": (("o_orderpriority", "!=", prio),),
+                               "group": ("o_orderstatus",),
+                               "aggs": ("count", ("sum", "o_clerk"), ("min", "o_clerk"),
+                                        ("max", "o_clerk"))}),
+            desc("range_where", {"src": "range", "select": ("o_orderpriority",),
+                                 "where": (("o_orderstatus", "==", "O"),)}),
+            desc("point_where9", {"src": "point", "where": nine}),
         ]
 
     def same_result(a, b):
@@ -1130,7 +1367,315 @@ def main() -> int:
          point_keys=int(qk.size), range=[lo, hi], launches=query_launches)
     del loaded
 
-    # --------------------------------------------------------- 9. times
+    # ---------------------------------------------------- 9. correlated
+    # TPC-DS customer_demographics at its full 1,920,800 rows (every
+    # column a periodic function of the key) under the reference
+    # benchmark's DM-R config, built with repro_torch.build on the card:
+    # lossless on every key, absent and out-of-capacity keys absent; the
+    # residue periods found, training, memorization, T_aux, Eq. 1,
+    # per-column accuracy against the majority share, the lookup's split;
+    # the query phase's scan and where plans against their oracles and
+    # pushdown(False); a save and reopen through repro_torch.open.
+    cd_table = customer_demographics_like()
+    cd_cfg = DeepMappingConfig(**DMR, train=trainer_lib.TrainConfig(
+        epochs=DMR_EPOCHS, batch_size=DMR_BATCH))
+    reset_launches()
+    trained.clear()
+    trainer_lib.train = timed_train
+    try:
+        t0 = time.perf_counter()
+        cd_store = repro_torch.build(cd_table, cd_cfg, device=dev)
+        torch.cuda.synchronize()
+        cd_build_s = time.perf_counter() - t0
+    finally:
+        trainer_lib.train = real_train
+    cd_build_launches = read_launches()
+    cd_hist = trained["history"]
+    check(len(cd_hist) > 0 and all(np.isfinite(cd_hist)), "DM-R training gave no finite loss")
+    n_cd = cd_table.num_rows
+    cd_cap = cd_store.encoder.capacity
+    cd_absent = np.concatenate([[0], rng.integers(n_cd + 1, cd_cap, PROBE_ABSENT - 1)])
+    cd_out = np.concatenate([rng.integers(cd_cap, 2**40, 1000), -rng.integers(1, 2**31, 1000)])
+    t0 = time.perf_counter()
+    cd_vals, cd_ex, cd_ls = cd_store._lookup_with_stats(cd_table.keys)
+    cd_lookup_s = time.perf_counter() - t0
+    check(bool(cd_ex.all()), "correlated: a present key reads as absent")
+    for c, col in cd_table.columns.items():
+        check(np.array_equal(cd_vals[c], col), f"correlated: column {c} is not lossless")
+    check(not cd_store.lookup(cd_absent)[1].any(), "correlated: an absent key reads as present")
+    check(not cd_store.lookup(cd_out)[1].any(),
+          "correlated: an out-of-capacity key reads as present")
+    cd_st = cd_store.engine.stats
+    check(cd_st.fused_calls > 0 and cd_st.jit_calls == 0, "correlated: left the fused tier")
+    # The model's own codes (before T_aux) per column, and the share of
+    # the most frequent value: the accuracy of always answering it.
+    cd_pred = cd_store.engine.infer(cd_table.keys)
+    per_column = {}
+    for i, t in enumerate(cd_store.spec.tasks):
+        truth = cd_store.codecs[t].codes
+        per_column[t] = {"accuracy": float((cd_pred[:, i] == truth).mean()),
+                         "majority_share": float(np.bincount(truth).max() / n_cd),
+                         "cardinality": cd_store.codecs[t].cardinality}
+    del cd_pred
+
+    pe = "cd_purchase_estimate"
+    cd_nine = ((pe, ">=", 1000), (pe, "<", 9000), (pe, "!=", 5000), (pe, ">", 1500),
+               (pe, "<=", 8500), ("cd_credit_rating", "!=", "Unknown"),
+               ("cd_credit_rating", "in", ("Good", "High Risk", "Low Risk")),
+               ("cd_education_status", "!=", "Primary"),
+               ("cd_education_status", "in", ("College", "Unknown", "2 yr Degree",
+                                               "4 yr Degree")))
+    cd_lo, cd_hi = n_cd // 4, n_cd // 2
+    cd_qk = rng.permutation(np.concatenate([rng.choice(cd_table.keys, 32_768, replace=False),
+                                            rng.integers(0, 2 * n_cd, 32_768)]))
+    cd_plans = [described(name, d, cd_table.keys, cd_table.columns, cd_lo, cd_hi, cd_qk)
+                for name, d in (
+        ("scan_where", {"src": "scan", "select": (pe,),
+                        "where": (("cd_education_status", "==", "College"),
+                                  ("cd_credit_rating", "in", ("Good", "Low Risk")))}),
+        ("count", {"src": "scan", "group": ("cd_gender", "cd_marital_status"),
+                   "aggs": ("count",)}),
+        ("point_where", {"src": "point", "where": (("cd_dep_count", "<", 2),)}),
+        ("agg_where", {"src": "scan", "where": (("cd_marital_status", "!=", "M"),),
+                       "group": ("cd_credit_rating",),
+                       "aggs": ("count", ("sum", pe), ("min", pe), ("max", pe))}),
+        ("range_where", {"src": "range", "select": ("cd_education_status",),
+                         "where": (("cd_credit_rating", "==", "High Risk"),)}),
+        ("point_where9", {"src": "point", "where": cd_nine}),
+    )]
+    cd_runs, cd_together_s = run_plans(cd_store, cd_plans)
+    for r in cd_runs:
+        r["infer_share"] = r["split_s"]["infer_s"] / r["wall_s"]
+    # Saved and reopened through repro_torch.open: the same answers.
+    cd_probe = np.concatenate([cd_table.keys, cd_absent, cd_out])
+    want_v, want_e = cd_store.lookup(cd_probe)
+    cd_dir = ROOT / "build" / f"chip_smoke_cd_{os.getpid()}"
+    shutil.rmtree(cd_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        cd_store.save(str(cd_dir))
+        cd_save_s = time.perf_counter() - t0
+        cd_artifacts = {f.name: f.stat().st_size for f in sorted(cd_dir.iterdir())}
+        t0 = time.perf_counter()
+        cd_loaded = repro_torch.open(str(cd_dir))
+        cd_load_s = time.perf_counter() - t0
+        got_v, got_e = cd_loaded.lookup(cd_probe)
+    finally:
+        shutil.rmtree(cd_dir, ignore_errors=True)
+    check(cd_loaded.device.type == "cuda" and np.array_equal(got_e, want_e),
+          "correlated: existence differs after the reopen")
+    for c in want_v:
+        check(got_v[c].dtype == want_v[c].dtype and got_v[c].tobytes() == want_v[c].tobytes(),
+              f"correlated: column {c} differs after the reopen")
+    del cd_loaded, got_v, want_v
+    cd_launches = paths["correlated"] = read_launches()
+    check(cd_launches["fused_lookup"] > 0 and cd_launches["fused_lookup_with_preds"] > 0,
+          "correlated: K1 was not launched, or never with predicate tables")
+    # K1 and K2 on this store's model and residue features against their
+    # plain versions: present keys, absent keys and the capacity's edges.
+    cd_edges = np.array([-1, 0, cd_cap - 1, cd_cap, 2**31 - 1], dtype=np.int64)
+    cd_kernels = store_kernels_vs_plain(cd_store, np.concatenate([
+        cd_edges, rng.permutation(np.concatenate([
+            rng.choice(cd_table.keys, 61_440, replace=False),
+            cd_absent[: 65_536 - 61_440 - cd_edges.size]]))]))
+    emit("correlated", rows=n_cd, config={**DMR, "epochs": DMR_EPOCHS, "batch": DMR_BATCH},
+         residues=list(cd_store.encoder.residues), width=cd_store.encoder.width,
+         feature_width=cd_store.spec.width, capacity=cd_cap,
+         cards={t: v["cardinality"] for t, v in per_column.items()},
+         epochs_run=len(cd_hist), early_stopped=len(cd_hist) < DMR_EPOCHS,
+         steps=trained["steps"], train_s=trained["seconds"],
+         s_per_epoch=trained["seconds"] / len(cd_hist),
+         steps_per_s=trained["steps"] / trained["seconds"], first_loss=cd_hist[0],
+         last_loss=cd_hist[-1], build_s=cd_build_s,
+         memorized_fraction=cd_store.memorized_fraction(), aux_rows=cd_store.aux.num_rows,
+         compression_ratio=cd_store.compression_ratio(), size_bytes=cd_store.size_bytes(),
+         size_breakdown=cd_store.size_breakdown(), raw_bytes=cd_store.raw_bytes,
+         per_column=per_column, absent_checked=int(cd_absent.size),
+         out_of_capacity_checked=int(cd_out.size),
+         lookup={"keys": n_cd, "wall_s": cd_lookup_s, "keys_per_s": n_cd / cd_lookup_s,
+                 "infer_s": cd_ls.infer_s, "exist_s": cd_ls.exist_s, "aux_s": cd_ls.aux_s,
+                 "decode_s": cd_ls.decode_s},
+         plans=cd_runs, execute_plans_s=cd_together_s, range=[cd_lo, cd_hi],
+         point_keys=int(cd_qk.size), save_s=cd_save_s, load_s=cd_load_s,
+         artifact_bytes=cd_artifacts, reopen_keys_checked=int(cd_probe.size),
+         stats={k: getattr(cd_st, k) for k in ("dispatches", "fused_calls", "pallas_calls",
+                                               "fused_streamed_calls", "jit_calls")},
+         build_launches=cd_build_launches, launches=cd_launches,
+         kernels_vs_plain=cd_kernels)
+
+    # ------------------------------------------------------ 10. multikey
+    # MultiKeyMapping over a customer_demographics prefix under DM-R, two
+    # key choices: (key, credit rating) packs into int32 and serves
+    # through K1; (key, purchase estimate) packs past int32 (raw integers
+    # up to 10,000, radix 10,001), so the engine takes the host-digits
+    # tier, K2, with the existence test on the host.  Each is lossless
+    # on every row; unknown combinations read as absent.
+    mk_table = customer_demographics_like(n=MK_ROWS)
+    mk_choices = (("__key__", "cd_credit_rating"), ("__key__", "cd_purchase_estimate"))
+    reset_launches()
+    t0 = time.perf_counter()
+    mk = MultiKeyMapping.build(mk_table, mk_choices, cd_cfg, device=dev)
+    torch.cuda.synchronize()
+    mk_build_s = time.perf_counter() - t0
+    mk_build_launches = read_launches()
+    by_choice = {}
+    for choice in mk_choices:
+        col = choice[1]
+        s = mk._stores[choice]
+        st = s.engine.stats
+        before = read_launches()
+        calls = (st.fused_calls, st.pallas_calls)
+        t0 = time.perf_counter()
+        vals, ex = mk.lookup(choice, [mk_table.keys, mk_table.columns[col]])
+        wall = time.perf_counter() - t0
+        check(bool(ex.all()), f"multikey {choice}: a row reads as absent")
+        check(set(vals) == set(mk_table.columns) - {col}, f"multikey {choice}: columns differ")
+        for c, v in vals.items():
+            check(np.array_equal(v, mk_table.columns[c]), f"multikey {choice}: {c} differs")
+        rows = rng.integers(0, MK_ROWS, 20_000)
+        domain = np.unique(mk_table.columns[col])
+        shifted = domain[(np.searchsorted(domain, mk_table.columns[col][rows]) + 1) % domain.size]
+        unseen = np.array(["Excellent"] if col == "cd_credit_rating" else [-5])
+        for keys, values, what in (
+                (mk_table.keys[rows], shifted, "another attribute value"),
+                (mk_table.keys[rows] + MK_ROWS, mk_table.columns[col][rows], "a key past the prefix"),
+                (mk_table.keys[:1], unseen, "a value outside the domain")):
+            check(not mk.lookup(choice, [keys, values])[1].any(),
+                  f"multikey {choice}: {what} reads as present")
+        after = read_launches()
+        took = {"fused": st.fused_calls - calls[0], "pallas_digits": st.pallas_calls - calls[1]}
+        by_choice[" + ".join(choice)] = {
+            "capacity": s.encoder.capacity, "int32": s.encoder.capacity <= 2**31 - 1,
+            "tier": [t for t, k in took.items() if k], "lookup_s": wall,
+            "keys_per_s": MK_ROWS / wall, "memorized_fraction": s.memorized_fraction(),
+            "aux_rows": s.aux.num_rows, "residues": list(s.encoder.residues),
+            "compression_ratio": s.compression_ratio(), "jit_calls": st.jit_calls,
+            "lookup_launches": {k: after[k] - before[k] for k in after}}
+    narrow, wide = by_choice.values()
+    check(narrow["int32"] and narrow["tier"] == ["fused"]
+          and narrow["lookup_launches"]["fused_lookup"] > 0,
+          "multikey: the int32 choice did not serve through K1")
+    check(not wide["int32"] and wide["tier"] == ["pallas_digits"]
+          and wide["lookup_launches"]["fused_mlp"] > 0
+          and wide["lookup_launches"]["fused_lookup"] == 0,
+          "multikey: the choice past int32 did not serve through K2")
+    check(narrow["jit_calls"] == 0 and wide["jit_calls"] == 0, "multikey: a plain tier was taken")
+    mk_launches = paths["multikey"] = read_launches()
+    # Each choice's kernel (K1 for the int32 one, K2 on host digits for
+    # the other) on its store's model against the plain version: packed
+    # keys of the prefix, packed keys past it, and the domain's edges.
+    for choice in mk_choices:
+        s = mk._stores[choice]
+        radix = mk._key_radices[choice][1]
+        codec = mk._key_codecs[choice][1]
+        part = mk_table.columns[choice[1]] if codec is None else codec.codes
+        packed = mk_table.keys.astype(np.int64) * radix + part
+        mcap = s.encoder.capacity
+        edges_mk = np.array([-1, 0, mcap - 1, mcap], dtype=np.int64)
+        by_choice[" + ".join(choice)]["kernels_vs_plain"] = store_kernels_vs_plain(
+            s, np.concatenate([edges_mk, rng.permutation(np.concatenate([
+                rng.choice(packed, 61_440, replace=False),
+                rng.integers(0, mcap, 65_536 - 61_440 - edges_mk.size)]))]))
+    emit("multikey", rows=MK_ROWS, choices=by_choice, build_s=mk_build_s,
+         build_launches=mk_build_launches, size_bytes=mk.size_bytes(), launches=mk_launches)
+    del mk
+
+    # ----------------------------------------------------- 11. baselines
+    # The two DeepMapping stores (train's SF1 store, correlated's DM-R
+    # store) probed first, then every AB/HB factory on customer_demographics
+    # and on SF1 orders.  Baselines are host code: a pool of spawned
+    # workers (never forked from this process, which holds a CUDA
+    # context), one per core, builds, checks, saves and bit-flips them
+    # once the card's phases are done, and stops with the phase however
+    # it ends.  Each saved file is reopened here through repro_torch.open
+    # and its lookup timed as the DeepMapping stores' were, with at most
+    # one worker still running beside it (``workers_beside``).
+    reset_launches()
+    tables = {"orders": train_table, "customer_demographics": cd_table}
+    dm_rows = []
+    for name, s, tname, bs in (("DM (PAPER_STORE, train)", tstore, "orders", tbuild_s),
+                               ("DM-R (correlated)", cd_store, "customer_demographics",
+                                cd_build_s)):
+        t = tables[tname]
+        keys, present = baseline_probe(t, args.seed)
+        t0 = time.perf_counter()
+        values, exists = s.lookup(keys)
+        wall = time.perf_counter() - t0
+        check_probe(name, t, keys, present, values, exists)
+        dm_rows.append({"table": tname, "store": name, "rows": t.num_rows,
+                        "size_bytes": s.size_bytes(), "ratio": s.compression_ratio(),
+                        "build_s": bs, "lookup_s": wall, "lookup_keys_per_s": keys.size / wall})
+    paths["baselines"] = read_launches()
+    out_dir = ROOT / "build" / f"chip_smoke_baselines_{os.getpid()}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    workers = max(1, min(len(BASELINE_JOBS), os.cpu_count() or 1))
+
+    def reopen_and_time(table_name, path):
+        """Reopen a saved file here, time its lookup of the probe, and
+        check it exact; its kind and the digest of its answers are held
+        against the worker's store once the worker returns."""
+        t = tables[table_name]
+        keys, present = baseline_probe(t, args.seed)
+        t0 = time.perf_counter()
+        reopened = repro_torch.open(path)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        values, exists = reopened.lookup(keys)
+        lookup_s = time.perf_counter() - t0
+        check_probe(f"{path} reopened", t, keys, present, values, exists)
+        return {"load_s": load_s, "lookup_s": lookup_s, "lookup_keys_per_s": keys.size / lookup_s,
+                "type": type(reopened).__name__, "digest": answers_digest(values, exists)}
+
+    files = [baseline_file(str(out_dir), t, f) for t, f in BASELINE_JOBS]
+    try:
+        t0 = time.perf_counter()
+        pool = multiprocessing.get_context("spawn").Pool(workers)
+        try:
+            jobs = [pool.apply_async(baseline_job, (t, f, args.seed, str(out_dir)))
+                    for t, f in BASELINE_JOBS]
+            # A saved file is reopened and timed once at most one job is
+            # left (HBC-L on customer_demographics, the longest build; its
+            # own file is timed while its worker looks the probe up on the
+            # store as built): that lone worker holds one core.
+            lone = [None] * len(jobs)
+            while True:
+                running = sum(not j.ready() for j in jobs)
+                todo = [i for i, f in enumerate(files) if lone[i] is None and os.path.exists(f)]
+                if not todo and not running:
+                    break
+                if running > 1 or not todo:
+                    time.sleep(0.05)
+                    continue
+                for i in todo:
+                    lone[i] = reopen_and_time(BASELINE_JOBS[i][0], files[i])
+                    lone[i]["workers_beside"] = running
+            stores = [j.get() for j in jobs]  # a failed check in a worker raises here
+        finally:
+            pool.terminate()
+            pool.join()
+        pool_s = time.perf_counter() - t0
+        # The array stores (the baselines whose lookups rival DeepMapping's)
+        # timed beside that worker are timed again with nothing beside them.
+        for i, row in enumerate(stores):
+            if lone[i]["workers_beside"] and row["type"] == "ArrayStore":
+                beside = lone[i]
+                lone[i] = {**reopen_and_time(row["table"], files[i]), "workers_beside": 0,
+                           "beside": {k: beside[k] for k in ("load_s", "lookup_s",
+                                                              "lookup_keys_per_s")}}
+            label = f"{row['store']} on {row['table']}"
+            check(lone[i].pop("type") == row["type"], f"{label}: reopened as another kind")
+            check(lone[i].pop("digest") == row.pop("digest"),
+                  f"{label}: the reopened store answers otherwise than before its save")
+            row.update(lone[i])
+            os.remove(files[i])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit("baselines", workers=workers, pool_s=pool_s,
+         probe={"present": PROBE_PRESENT, "absent": PROBE_ABSENT}, stores=stores,
+         deepmapping=dm_rows, launches=paths["baselines"])
+    del cd_store
+
+    # -------------------------------------------------------- 12. times
     n = 65536
     kp = rng.choice(table.keys, n).astype(np.int32)
     kt = torch.from_numpy(kp).to(dev)

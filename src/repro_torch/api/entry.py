@@ -7,14 +7,14 @@ the reference's order:
   yet: raises, naming ROADMAP item M8);
 * directory with ``meta.msgpack``      -> single DeepMapping store
   (:func:`~repro_torch.core.serialize.load_store`);
-* a file                               -> AB/HB baseline store (not
-  ported yet: raises, naming ROADMAP item M7).
+* msgpack file with a ``kind`` header  -> AB/HB baseline store
+  (:func:`~repro_torch.baselines.partitioned.load_baseline_store`).
 
 ``build`` trains/assembles a single
 :class:`~repro_torch.core.hybrid.DeepMappingStore` from a
 :class:`~repro_torch.core.table.Table`.  Both run on the CUDA device
-unless given ``device=``.  All imports are lazy so ``import
-repro_torch`` stays light.
+unless given ``device=`` (a baseline store is host code and ignores
+it).  All imports are lazy so ``import repro_torch`` stays light.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ SUPPORTED_FORMATS = (
     "single DeepMapping store: directory containing meta.msgpack "
     "(DeepMappingStore.save)",
     "baseline overlay store: single msgpack file with an "
-    "array_store/hash_store 'kind' header (not ported yet, M7)",
+    "array_store/hash_store 'kind' header (ArrayStore/HashStore.save)",
 )
 
 
@@ -38,11 +38,13 @@ def open(path: str, pool=None, device=None):  # noqa: A001 — deliberate builti
     """Load a saved store, sniffing the on-disk format.
 
     A **directory** holding ``meta.msgpack`` is a single DeepMapping
-    store, loaded onto ``device`` (CUDA by default).  A directory
-    holding ``manifest.msgpack`` (a sharded cluster) and a **file** (a
-    baseline store) are the reference's other formats; the port cannot
-    load them yet and raises ``NotImplementedError`` naming the ROADMAP
-    item that brings them.  Anything else raises a ``ValueError`` (or
+    store, loaded onto ``device`` (CUDA by default).  A **file** is
+    parsed as a baseline msgpack blob and dispatched on its ``kind``
+    header (``array_store``/``hash_store``); baselines are host code,
+    so ``device`` does not apply to them.  A directory holding
+    ``manifest.msgpack`` is a sharded cluster, which the port cannot
+    load yet: it raises ``NotImplementedError`` naming ROADMAP item M8.
+    Anything else raises a ``ValueError`` (or
     ``FileNotFoundError`` when ``path`` does not exist) that lists the
     supported formats.  ``pool`` is the shared
     :class:`~repro_torch.storage.MemoryPool` to charge decompressed
@@ -80,11 +82,17 @@ def open(path: str, pool=None, device=None):  # noqa: A001 — deliberate builti
             f"{supported}"
         )
     if os.path.isfile(path):
-        raise NotImplementedError(
-            f"{path!r} is a file, which only a baseline store "
-            f"(ArrayStore/HashStore) saves; the port loads baselines "
-            f"with ROADMAP item M7; supported formats: {supported}"
-        )
+        from repro_torch.baselines.partitioned import load_baseline_store
+        from repro_torch.fault.errors import IntegrityError
+
+        try:
+            return load_baseline_store(path, pool=pool)
+        except IntegrityError:
+            raise  # corruption, not an unrecognized format — say so
+        except ValueError as err:
+            raise ValueError(
+                f"{err}; supported formats: {supported}"
+            ) from err
     raise FileNotFoundError(
         f"{path!r} does not exist; repro_torch.open loads any of: {supported}"
     )

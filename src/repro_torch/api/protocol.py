@@ -6,9 +6,10 @@ A copy of ``repro.api.protocol`` with its imports rewritten to the port, which
 imports nothing of ``repro``.
 
 The port's :class:`~repro_torch.core.hybrid.DeepMappingStore` subclasses
-:class:`MappingStore` (the sharded store and the baselines follow with
-ROADMAP items M7 and M8) and is exercised by the port's conformance
-cases (``tests/test_torch_query.py``).
+:class:`MappingStore`, as do the AB/HB baselines
+(:mod:`repro_torch.baselines`; the sharded store follows with ROADMAP
+item M8); all three are exercised by the port's conformance cases
+(``tests/test_torch_query.py``).
 
 Conformance contract (what the suite checks):
 

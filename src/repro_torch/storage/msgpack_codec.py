@@ -10,7 +10,10 @@ covers exactly what the layout holds:
 * ``str`` → str (UTF-8; fixstr, str8, str16, str32), ``bytes`` /
   ``bytearray`` / ``memoryview`` → bin (bin8, bin16, bin32);
 * ``int`` from −2⁶³ to 2⁶⁴−1 in the smallest encoding msgpack picks
-  (crc32s are unsigned 32-bit, so uint32 matters); ``bool``; ``None``.
+  (crc32s are unsigned 32-bit, so uint32 matters); ``bool``; ``None``;
+* ``float`` → float64 (``0xcb``, as ``msgpack.packb`` packs a Python
+  float); float32 (``0xca``) and float64 unpack to ``float``.  A
+  baseline store's overlay rows hold float columns as item lists.
 
 :func:`packb` gives the bytes of ``msgpack.packb(obj)`` (defaults:
 ``use_bin_type=True``) for every such object and raises ``TypeError``
@@ -81,6 +84,8 @@ def _pack(obj, out: bytearray) -> None:
         out.append(0xC2)
     elif isinstance(obj, int):
         _pack_int(int(obj), out)
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
     elif isinstance(obj, str):
         data = obj.encode("utf-8")
         n = len(data)
@@ -117,6 +122,7 @@ def packb(obj) -> bytes:
 _SCALARS = {
     0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
     0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q",
+    0xCA: ">f", 0xCB: ">d",
 }
 #: Sized payloads: type byte -> (kind, struct format of the length).
 _SIZED = {

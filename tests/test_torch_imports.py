@@ -168,6 +168,9 @@ def test_module_scan_covers_this_slices_modules():
             "fault/injection.py", "obs/tracing.py", "obs/export.py", "api/cache.py",
             "api/entry.py", "api/executor.py", "api/protocol.py", "api/query.py",
             "api/routing.py"} <= names
+    assert {"data/datasets.py", "data/tpcds.py", "baselines/__init__.py",
+            "baselines/partitioned.py", "baselines/array_store.py", "baselines/hash_store.py",
+            "core/multikey.py"} <= names
 
 
 def test_chip_smoke_imports_none_of_the_forbidden_modules():

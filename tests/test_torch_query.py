@@ -10,6 +10,12 @@ cases of ``test_store_protocol.py``, ``test_streaming_executor.py``,
 ``test_aggregate_join.py``, ``test_range_queries.py`` and
 ``test_tpch_queries.py``.
 
+The conformance cases that hold for every store type run on three
+kinds of store pair (``KINDS``): the DeepMapping store, and the AB and
+HB baselines (``ArrayStore``, ``HashStore``; host code in both
+packages), each pair built by both packages from the same table and
+held against each other and the oracle.
+
 The port's store serves through the fused tier (``use_kernels=True``),
 which on the CPU runs K1's plain version: a ``where`` conjunction ships
 its predicate code tables into it and filters on the match bits it
@@ -38,6 +44,10 @@ from repro_torch.api import (
     next_morsel_rows,
     stream_plan,
 )
+from repro.baselines import ArrayStore as JArrayStore
+from repro.baselines import HashStore as JHashStore
+from repro.core import Table as JTable
+from repro_torch.baselines import ArrayStore, HashStore
 from repro_torch.core import DeepMappingConfig, DeepMappingStore, Table
 from repro_torch.data.tpch import lineitem_like, orders_like
 from torch_port_util import store_pair
@@ -45,6 +55,12 @@ from torch_port_util import store_pair
 SHARED, PRIVATE = (32,), (8,)
 SPECS = ("count", ("sum", "c"), ("min", "c"), ("max", "a"))
 REF_SPECS = (("count", None), ("sum", "c"), ("min", "c"), ("max", "a"))
+#: The store kinds the conformance cases run on; each marked case takes
+#: them through its ``pair`` / ``mutated`` fixture, or a ``kind`` argument.
+KINDS = ("deepmapping", "array", "hash")
+ALL_KINDS = pytest.mark.parametrize("pair", KINDS, indirect=True)
+ALL_KINDS_MUTATED = pytest.mark.parametrize("mutated", KINDS, indirect=True)
+ALL_KINDS_ARG = pytest.mark.parametrize("kind", KINDS)
 
 
 def make_table(n=900, stride=3, off=0, cls=Table):
@@ -114,34 +130,57 @@ def both(pair, build, right=None):
     return got
 
 
+def kind_pair(kind, table, shared=SHARED, private=PRIVATE, epochs=8):
+    """``(reference store, port store)`` of one kind over ``table``: a
+    DeepMapping pair from the same weights (``store_pair``), or the same
+    baseline built by both packages with the reference suites' settings."""
+    if kind == "deepmapping":
+        return store_pair(table, shared, private, epochs=epochs)[:2]
+    jtable = JTable(keys=table.keys.copy(), columns={c: v.copy() for c, v in table.columns.items()})
+    if kind == "array":
+        return (JArrayStore.build(jtable, codec="zstd", partition_bytes=4096),
+                ArrayStore.build(table, codec="zstd", partition_bytes=4096))
+    if kind == "hash":
+        return (JHashStore.build(jtable, codec="none", partition_bytes=2048),
+                HashStore.build(table, codec="none", partition_bytes=2048))
+    raise ValueError(kind)
+
+
+def is_model(pair):
+    """True for a DeepMapping pair (a model answers; baselines have none)."""
+    return isinstance(pair[1], DeepMappingStore)
+
+
 @pytest.fixture(scope="module")
 def table():
     return make_table()
 
 
 @pytest.fixture(scope="module")
-def pair(table):
-    jstore, store, _ = store_pair(table, SHARED, PRIVATE)
-    return jstore, store
+def pair(request, table):
+    """The DeepMapping pair, or the kind a case is parametrized with."""
+    return kind_pair(getattr(request, "param", "deepmapping"), table)
 
 
 @pytest.fixture(scope="module")
-def mutated():
+def mutated(request):
     table = make_table(n=400)
-    jstore, store, _ = store_pair(table, SHARED, PRIVATE)
-    for s in (jstore, store):
+    p = kind_pair(getattr(request, "param", "deepmapping"), table)
+    for s in p:
         mutate(s, table, NEW_KEYS)
-    return table, (jstore, store)
+    return table, p
 
 
 # ------------------------------------------------------------ conformance
 class TestConformanceSurface:
+    @ALL_KINDS
     def test_is_mapping_store(self, pair):
         store = pair[1]
         assert isinstance(store, MappingStore)
         for name in CONFORMANCE_METHODS:
             assert callable(getattr(store, name)), name
 
+    @ALL_KINDS
     def test_columns_and_size_breakdown(self, pair, table):
         jstore, store = pair
         assert set(store.columns) == set(table.columns)
@@ -160,6 +199,7 @@ class TestConformanceSurface:
 
 
 class TestPlanEquivalence:
+    @ALL_KINDS
     def test_point_query_matches_legacy_and_reference(self, pair, table):
         store = pair[1]
         q = query_keys(table)
@@ -170,12 +210,14 @@ class TestPlanEquivalence:
             assert res.values[c].tobytes() == legacy_v[c].tobytes()
         assert res.explain.kind == "point" and res.explain.num_keys == q.shape[0]
 
+    @ALL_KINDS
     def test_point_query_matches_table(self, pair, table):
         res = both(pair, lambda s, _: s.where_keys(table.keys[::7]))
         assert res.exists.all()
         for c in table.columns:
             np.testing.assert_array_equal(res.values[c], table.columns[c][::7])
 
+    @ALL_KINDS
     def test_range_query_matches_legacy(self, pair, table):
         store = pair[1]
         lo, hi = int(table.keys[100]), int(table.keys[400])
@@ -187,6 +229,7 @@ class TestPlanEquivalence:
         assert res.exists.all()
         np.testing.assert_array_equal(res.keys, table.keys[(table.keys >= lo) & (table.keys < hi)])
 
+    @ALL_KINDS
     def test_scan_matches_legacy_and_table(self, pair, table):
         store = pair[1]
         keys_l, vals_l = store.scan()
@@ -198,6 +241,7 @@ class TestPlanEquivalence:
             np.testing.assert_array_equal(res.values[c], srt.columns[c])
             assert vals_l[c].tobytes() == res.values[c].tobytes()
 
+    @ALL_KINDS
     def test_fanout_off_identical(self, pair, table):
         q = query_keys(table)
         on = both(pair, lambda s, _: s.where_keys(q))
@@ -233,6 +277,7 @@ class TestProjectionPushdown:
 
 
 class TestZeroLengthBatches:
+    @ALL_KINDS
     def test_lookup_and_query_empty(self, pair):
         store = pair[1]
         values, exists = store.lookup(np.zeros(0, dtype=np.int64))
@@ -243,9 +288,10 @@ class TestZeroLengthBatches:
         keys, _ = store.range_lookup(5, 5)
         assert keys.shape == (0,)
 
-    def test_mutations_empty(self):
+    @ALL_KINDS_ARG
+    def test_mutations_empty(self, kind):
         table = make_table(n=200)
-        _, store, _ = store_pair(table, (16,), (4,), epochs=1)
+        store = kind_pair(kind, table, (16,), (4,), epochs=1)[1]
         empty = np.zeros(0, dtype=np.int64)
         no_cols = {c: np.zeros(0, dtype=np.int32) for c in table.columns}
         store.insert(empty, no_cols)
@@ -272,6 +318,7 @@ class TestMutationValidation:
 
 
 class TestInterleavedModifications:
+    @ALL_KINDS_MUTATED
     def test_point_after_mods_matches_legacy(self, mutated):
         table, p = mutated
         q = np.concatenate([table.keys, NEW_KEYS])
@@ -286,6 +333,7 @@ class TestInterleavedModifications:
         for c in legacy_v:
             assert legacy_v[c].tobytes() == res.values[c].tobytes()
 
+    @ALL_KINDS_MUTATED
     def test_range_after_mods_matches_legacy(self, mutated):
         table, p = mutated
         lo, hi = 0, int(table.max_key) + 10
@@ -294,12 +342,14 @@ class TestInterleavedModifications:
         np.testing.assert_array_equal(keys_l, res.keys)
         assert int(table.keys[35]) not in set(res.keys.tolist())
 
+    @ALL_KINDS_MUTATED
     def test_scan_after_mods_counts(self, mutated):
         table, p = mutated
         keys, _ = p[1].scan()
         assert keys.shape[0] == table.num_rows + 4 - 10 - 1 == p[1].num_rows
         assert np.all(np.diff(keys) > 0)
 
+    @ALL_KINDS_MUTATED
     def test_save_open_after_mods(self, mutated, tmp_path):
         table, p = mutated
         store = p[1]
@@ -338,6 +388,7 @@ class TestEntrypoints:
 
 # -------------------------------------------------------------- streaming
 class TestStreamingVsStaged:
+    @ALL_KINDS
     @pytest.mark.parametrize("morsel", (64, 10_000))
     def test_point(self, pair, table, morsel):
         store = pair[1]
@@ -345,6 +396,7 @@ class TestStreamingVsStaged:
         assert_result_bytes_equal(execute_plan(store, plan), execute_plan_staged(store, plan))
         both(pair, lambda s, _: s.where_keys(query_keys(table)).morsel(morsel))
 
+    @ALL_KINDS
     def test_range_and_scan(self, pair, table):
         store = pair[1]
         lo, hi = int(table.keys[50]), int(table.keys[500])
@@ -355,6 +407,7 @@ class TestStreamingVsStaged:
             assert_result_bytes_equal(res, execute_plan_staged(store, plan))
             assert res.exists.all() and res.explain.morsels > 1
 
+    @ALL_KINDS_MUTATED
     def test_after_interleaved_mods(self, mutated):
         table, p = mutated
         store = p[1]
@@ -364,6 +417,7 @@ class TestStreamingVsStaged:
         assert_result_bytes_equal(res, execute_plan_staged(store, plan))
         assert_result_bytes_equal(res, p[0].query().where_keys(q).morsel(77).execute())
 
+    @ALL_KINDS
     def test_stream_yields_aligned_morsels(self, pair, table):
         q = table.keys[:130]
         morsels = list(pair[1].query().where_keys(q).morsel(50).stream())
@@ -575,6 +629,7 @@ class TestKernelPredicateSlots:
 
 
 class TestMultiPlanPipelining:
+    @ALL_KINDS
     def test_matches_serial_execution(self, pair, table):
         q = query_keys(table)
         builds = [
@@ -732,6 +787,7 @@ def rows_for_keys(table, keys):
 
 
 class TestAggregateDifferential:
+    @ALL_KINDS
     def test_scan_groupby_all_funcs(self, pair, table):
         res = both(pair, lambda s, _: s.group_by("a", "b").agg(*SPECS).scan())
         assert isinstance(res, AggregateResult)
@@ -741,6 +797,7 @@ class TestAggregateDifferential:
         assert_aggregate_equal(ref, groups, aggs)
         assert res.explain.groups_emitted == res.num_groups
 
+    @ALL_KINDS
     @pytest.mark.parametrize("pushdown", (True, False))
     def test_predicate_pushdown_on_off(self, pair, table, pushdown):
         groups, aggs = ref_group_aggregate(table.columns, ("a",), REF_SPECS,
@@ -748,8 +805,9 @@ class TestAggregateDifferential:
         res = both(pair, lambda s, _: s.where("c", "<", 4).group_by("a").agg(*SPECS)
                    .pushdown(pushdown).scan())
         assert_aggregate_equal(res, groups, aggs)
-        assert res.explain.kernel_filtered is pushdown
+        assert res.explain.kernel_filtered is (pushdown and is_model(pair))
 
+    @ALL_KINDS
     def test_point_keys_with_missing_and_duplicates(self, pair, table):
         rng = np.random.default_rng(7)
         q = np.concatenate([rng.choice(table.keys, 300), [1, table.max_key + 5, 10**8]])
@@ -757,12 +815,14 @@ class TestAggregateDifferential:
         res = both(pair, lambda s, _: s.group_by("b").agg(*SPECS).where_keys(q))
         assert_aggregate_equal(res, groups, aggs)
 
+    @ALL_KINDS
     def test_global_aggregate_single_group(self, pair, table):
         res = both(pair, lambda s, _: s.agg("count", ("max", "c")).scan())
         assert res.num_groups == 1 and res.groups == {}
         assert int(res.aggregates["count"][0]) == len(table.keys)
         assert int(res.aggregates["max(c)"][0]) == int(table.columns["c"].max())
 
+    @ALL_KINDS
     def test_range_aggregate(self, pair, table):
         lo, hi = int(table.keys[100]), int(table.keys[700])
         groups, aggs = ref_group_aggregate(table.columns, ("a",), REF_SPECS,
@@ -770,6 +830,7 @@ class TestAggregateDifferential:
         res = both(pair, lambda s, _: s.group_by("a").agg(*SPECS).where_range(lo, hi))
         assert_aggregate_equal(res, groups, aggs)
 
+    @ALL_KINDS
     def test_adaptive_fixed_and_staged(self, pair):
         store = pair[1]
         adaptive = store.query().group_by("a", "b").agg(*SPECS).scan().execute()
@@ -787,9 +848,10 @@ class TestAggregateDifferential:
         assert res.explain.rows_decoded == 0
         assert any(op.name == "aggregate" for op in res.explain.operators)
 
-    def test_aggregate_after_mutations(self):
+    @ALL_KINDS_ARG
+    def test_aggregate_after_mutations(self, kind):
         table = make_table(n=400)
-        p = store_pair(table, (16,), (4,), epochs=2)[:2]
+        p = kind_pair(kind, table, (16,), (4,), epochs=2)
         for s in p:
             mutate(s, table, NEW_KEYS)
         model = {int(k): {c: int(table.columns[c][i]) for c in table.columns}
@@ -805,10 +867,12 @@ class TestAggregateDifferential:
         groups, aggs = ref_group_aggregate(logical, ("a",), REF_SPECS)
         res = both(p, lambda s, _: s.group_by("a").agg(*SPECS).scan())
         assert_aggregate_equal(res, groups, aggs)
-        assert res.explain.rows_decoded == 0
+        if kind == "deepmapping":
+            assert res.explain.rows_decoded == 0
         ref = p[1].query().group_by("a").agg(*SPECS).pushdown(False).scan().execute()
         assert_aggregate_equal(ref, groups, aggs)
 
+    @ALL_KINDS
     def test_validation(self, pair):
         store = pair[1]
         with pytest.raises(ValueError):
@@ -831,6 +895,7 @@ class TestJoinDifferential:
         t = make(Table)
         return t, store_pair(t, (16,), (4,), epochs=2)[:2]
 
+    @ALL_KINDS
     def test_join_matches_mask(self, pair, table, right):
         rtable, rpair = right
         key_fn = lambda k: k % 700  # noqa: E731
@@ -842,6 +907,7 @@ class TestJoinDifferential:
                                       [clerk[int(k) % 700] for k in res.keys])
         assert res.explain.join_probes == len(table.keys)
 
+    @ALL_KINDS
     def test_self_join_probe(self, pair, table):
         q = np.concatenate([table.keys[::5], [1, 4, table.max_key + 3]])
         res = both(pair, lambda s, r: s.select("a").where_keys(q).join(r, columns=("b",)), pair)
@@ -851,6 +917,7 @@ class TestJoinDifferential:
         for c in "ab":
             np.testing.assert_array_equal(res.values[c], [lut[c][int(k)] for k in res.keys])
 
+    @ALL_KINDS
     def test_collision_prefix_and_left_columns(self, pair, table, right):
         rtable, rpair = right
         key_fn = lambda k: k % 700  # noqa: E731
@@ -862,6 +929,7 @@ class TestJoinDifferential:
         np.testing.assert_array_equal(np.asarray(res.values["r.c"]),
                                       [cmap[int(k) % 700] for k in res.keys])
 
+    @ALL_KINDS
     def test_with_predicate_pushdown_on_off(self, pair, table, right):
         rtable, rpair = right
         key_fn = lambda k: k % 700  # noqa: E731
@@ -871,8 +939,9 @@ class TestJoinDifferential:
         assert_result_bytes_equal(down, ref)
         mask = ref_join_mask(table.keys, key_fn, rtable.keys) & (table.columns["c"] > 3)
         np.testing.assert_array_equal(down.keys, table.keys[mask])
-        assert down.explain.kernel_filtered
+        assert down.explain.kernel_filtered is is_model(pair)
 
+    @ALL_KINDS
     def test_staged_equals_streaming_and_probes(self, pair, table, right):
         _, rpair = right
         store, rstore = pair[1], rpair[1]
