@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --models-only [--src CHECKOUT]
+    python3 chip_smoke.py --models-only [--plans] [--src CHECKOUT]
 
 Drives the port's main paths at full width and holds every CUDA kernel
 on them against its plain PyTorch version on the card:
@@ -56,7 +56,25 @@ on them against its plain PyTorch version on the card:
                 main store after its mutations.  K1 must run with
                 predicate tables and every ``where`` plan must report
                 ``kernel_filtered``;
-9. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
+9. cluster    — the reference's default cluster (``ClusterConfig()``:
+                4 range shards) over the same SF1 table, every shard
+                trained on the card with the train phase's config through
+                ``repro_torch.build(..., cluster=...)`` in a thread pool:
+                every key, absent and out-of-capacity keys through
+                ``lookup`` (serial) and a ``where_keys`` plan (fan-out),
+                byte-identical to each other and on present rows to the
+                single store; the query phase's nine plans against their
+                oracles and ``pushdown(False)``; 10,000 mutations in the
+                last shard's range and a retrain of the shard they
+                dirtied; save and reopen through ``repro_torch.open``; a
+                replicate (round robin) and a partition federation with
+                an AB baseline, member 0 killed in the replicate one; one
+                shard fault retried, one dead shard surfacing as
+                ``OwnerFailure``; a bit flipped in one shard's
+                ``aux.msgpack`` refused, then quarantined with the healthy
+                shards serving.  Every plan without an injected fault
+                retries nothing;
+10. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
                 rows under the reference benchmark's DM-R config,
                 trained on the card through ``repro_torch.build``: every
                 key lossless, absent and out-of-capacity keys absent; the
@@ -67,39 +85,40 @@ on them against its plain PyTorch version on the card:
                 through ``repro_torch.open`` with the same answers; K1
                 (with and without predicate tables) and K2 on the store's
                 model and residue features against their plain versions;
-10. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
-                under DM-R, with two key choices: (key, credit rating),
+11. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
+                under DM-R (20 epochs, cut for time), with two key
+                choices: (key, credit rating),
                 whose packed domain fits int32 (K1), and (key, purchase
                 estimate), past int32 (the host-digits tier, K2); each
                 lossless on every row, unknown combinations absent; each
                 choice's kernel on its store's model against its plain
                 version;
-11. baselines — every AB/HB factory of the paper (§V-A3) on
-                ``customer_demographics`` and on SF1 ``orders``: exact on
-                200,000 present and 100,000 absent keys, saved, reopened
+12. baselines — every AB/HB factory of the paper (§V-A3) on
+                ``customer_demographics`` (HBC-L on its first 960,400
+                rows, cut for time) and on SF1 ``orders``: exact on
+                100,000 present and 50,000 absent keys, saved, reopened
                 through ``repro_torch.open`` with the same answers, and a
                 flipped payload bit refused; size, Eq. 1 ratio, build
                 seconds and lookup keys/s beside the two DeepMapping
                 stores probed the same way.  Baselines are host code:
                 they build in a pool of spawned workers (never forked
                 from the process that holds the CUDA context), one per
-                core, started after the card's phases; each reopened
-                store's lookup is timed in the main process once at most
-                one worker is left (the array stores timed beside it are
-                timed again alone);
-12. times     — kernel and plain-version times with CUDA events, the
+                core but two, started before phase 10 and running beside
+                phases 10 and 11; a hash store's reopened lookup is timed
+                in its worker, an array store's in the main process once
+                at most one worker is left (and again alone if one was);
+13. times     — kernel and plain-version times with CUDA events, the
                 kernels' bounds, K1/K2 under each plan of the store's
-                model and on the store's heads under wider trunks (every
-                plan), one fp32 ``torch.matmul`` of the trunk's 256x256
+                model, one fp32 ``torch.matmul`` of the trunk's 256x256
                 layer as a yardstick, registers and spills per
                 instantiation, and whole-table lookup throughput.
 
 Each kernel's launches are counted on every path that drives the port
-(phases 3 to 11), with the counts set to 0 just before each path and read
+(phases 3 to 12), with the counts set to 0 just before each path and read
 just after; K1's launches that carried predicate tables are counted
 apart.  The launches made to compare a kernel with its plain version
-(phase 2, and in phases 9 and 10 after their counts are read) and those
-of phase 12 do not count.
+(phase 2, and in phases 10 and 11 after their counts are read) and those
+of phase 13 do not count.
 Each phase prints one JSON line with its seconds (``phase_s``); any
 failed check raises (non-zero exit).  The last lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -108,13 +127,17 @@ no result.  A full record goes to ``chiprun_out/chip_smoke.json``.
 
 ``--models-only`` runs none of that: it builds the kernels of the
 checkout under ``--src`` (this one by default) and prints one JSON line
-of K1/K2 times on the MODELS through the public calls, so that two
-checkouts can be timed in one call.
+of K1/K2 times on the MODELS (the store's heads under wider trunks)
+through the public calls, so that two checkouts can be timed in one
+call; ``--plans`` also times every plan that fits, with the codes
+checked across plans, through private helpers of this checkout's
+package (``fused_mlp._candidate_plans``, ``plan=``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -125,7 +148,9 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -156,9 +181,17 @@ DMR_EPOCHS, DMR_BATCH = 60, 8192
 #: time (215,001 x 10,001 already passes int32, so the cut keeps the
 #: purchase-estimate choice past it).
 MK_ROWS = 240_000
+#: Epochs of the multikey phase's two stores: DM-R's 60 capped at 20, cut
+#: for the smoke's time budget.
+MK_EPOCHS = 20
 #: Probe of the baselines phase, the same for every store of a table:
-#: present keys sampled without replacement, and absent keys.
-PROBE_PRESENT, PROBE_ABSENT = 200_000, 100_000
+#: present keys sampled without replacement, and absent keys (halved from
+#: 200,000 and 100,000 for the smoke's time budget).
+PROBE_PRESENT, PROBE_ABSENT = 100_000, 50_000
+#: customer_demographics rows under HBC-L, the baseline pool's long pole
+#: (its LZMA partitions took 128.85 s over all 1,920,800 rows): a prefix,
+#: cut for the smoke's time budget.
+HBCL_CD_ROWS = 960_400
 
 RECORD: dict = {}
 #: perf_counter at the end of the previous phase (the script's start for
@@ -254,8 +287,8 @@ def model_times(dev, seed: int, plans: bool) -> list:
     package on ``sys.path``; with ``plans``, also under every plan that
     fits, forced through the private helpers (medians of 5 calls, where
     the default plan's are of 20: the slowest plans of the widest trunk
-    take about 0.1 s a call), and with the codes checked equal across
-    plans and between K1 and K2."""
+    take about 0.1 s a call), with the codes checked equal across plans
+    and between K1 and K2."""
     import numpy as np
     import torch
     from repro_torch.core import MLPSpec, init_params
@@ -315,7 +348,7 @@ def model_times(dev, seed: int, plans: bool) -> list:
     return out
 
 
-def models_only(src: Path, seed: int) -> int:
+def models_only(src: Path, seed: int, plans: bool) -> int:
     """``--models-only``: build the kernels of the package under
     ``src/src`` and print the MODELS' times as one JSON line, so that two
     checkouts can be compared in one call."""
@@ -337,18 +370,21 @@ def models_only(src: Path, seed: int) -> int:
     ptxas = [ln.strip() for ln in build.BUILD_INFO["fused_mlp.cu"]["log"].splitlines()
              if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
     print(json.dumps({"phase": "models", "src": str(src), "nvidia_smi": smi, "ptxas": ptxas,
-                      "models": model_times(torch.device("cuda"), seed, plans=False)}),
+                      "models": model_times(torch.device("cuda"), seed, plans)}),
           flush=True)
     return 0
 
 
 def baseline_table(name: str, seed: int):
     """The baselines phase's tables: TPC-DS ``customer_demographics`` in
-    full and TPC-H ``orders`` at SF1 (the ``train`` phase's table)."""
+    full and its first HBCL_CD_ROWS rows, and TPC-H ``orders`` at SF1
+    (the ``train`` phase's table)."""
     from repro_torch.data import customer_demographics_like, orders_like
 
     if name == "customer_demographics":
         return customer_demographics_like()
+    if name == "customer_demographics_prefix":
+        return customer_demographics_like(n=HBCL_CD_ROWS)
     return orders_like(ROWS, seed=seed)
 
 
@@ -393,11 +429,13 @@ def answers_digest(values, exists) -> str:
 def baseline_job(table_name: str, factory: str, seed: int, out_dir: str) -> dict:
     """One AB/HB store, in a worker process (host code: no CUDA): build
     it with the reference's factory (timed), save it, refuse a copy with
-    one payload bit flipped, then look the probe up on the store as built
-    and check it exact.  The saved file (written atomically) stays for
-    the main process, which reopens it and times its lookup; the digest
-    of this lookup's answers lets it hold the reopened store byte for
-    byte against this one."""
+    one payload bit flipped, look the probe up on the store as built and
+    check it exact, then reopen the saved file, time its lookup of the
+    probe (beside the other workers) and hold its answers byte for byte
+    against the store's as built.  The file (written atomically) stays
+    for the main process, which reopens and times the array stores again
+    on their own; the digest of the answers lets it hold those against
+    this store too."""
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
     from repro_torch.baselines import BASELINE_FACTORIES
@@ -425,13 +463,23 @@ def baseline_job(table_name: str, factory: str, seed: int, out_dir: str) -> dict
     keys, present = baseline_probe(table, seed)
     values, exists = store.lookup(keys)
     check_probe(label, table, keys, present, values, exists)
+    digest = answers_digest(values, exists)
+    t0 = time.perf_counter()
+    reopened = repro_torch.open(path)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    values, exists = reopened.lookup(keys)
+    lookup_s = time.perf_counter() - t0
+    check(type(reopened) is type(store) and answers_digest(values, exists) == digest,
+          f"{label}: the reopened store answers otherwise than before its save")
     return {"table": table_name, "store": factory, "kind": store.kind, "codec": store.codec_name,
             "type": type(store).__name__, "rows": table.num_rows,
             "partitions": len(store._partitions), "size_bytes": store.size_bytes(),
             "size_breakdown": store.size_breakdown(),
             "ratio": store.size_bytes() / table.raw_size_bytes(), "file_bytes": os.path.getsize(path),
             "build_s": build_s, "save_s": save_s, "integrity_error": integrity_error,
-            "digest": answers_digest(values, exists)}
+            "digest": digest, "load_s": load_s, "lookup_s": lookup_s,
+            "lookup_keys_per_s": keys.size / lookup_s, "timed_in": "worker"}
 
 
 def baseline_file(out_dir: str, table_name: str, factory: str) -> str:
@@ -439,9 +487,11 @@ def baseline_file(out_dir: str, table_name: str, factory: str) -> str:
 
 
 #: The baseline stores, most expensive first (the pool takes them in
-#: this order): every factory on both tables.
+#: this order): every factory on both tables, HBC-L on
+#: customer_demographics' prefix.
 BASELINE_JOBS = tuple(
-    (t, f) for f in ("HBC-L", "HB", "HBC-Z", "ABC-L", "ABC-G", "ABC-D", "ABC-Z", "AB")
+    ("customer_demographics_prefix" if (t, f) == ("customer_demographics", "HBC-L") else t, f)
+    for f in ("HBC-L", "HB", "HBC-Z", "ABC-L", "ABC-G", "ABC-D", "ABC-Z", "AB")
     for t in ("customer_demographics", "orders"))
 
 
@@ -452,9 +502,11 @@ def main() -> int:
                     help="only time K1 and K2 on the wider models, through the public calls")
     ap.add_argument("--src", type=Path, default=ROOT,
                     help="with --models-only: the checkout whose src/ package to time")
+    ap.add_argument("--plans", action="store_true",
+                    help="with --models-only: also time every tile plan (private helpers)")
     args = ap.parse_args()
     if args.models_only:
-        return models_only(args.src.resolve(), args.seed)
+        return models_only(args.src.resolve(), args.seed, args.plans)
 
     import torch
 
@@ -464,27 +516,31 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401 — fails here when src/ is not beside the script
 
-    return smoke(args)
+    with contextlib.ExitStack() as cleanup:
+        return smoke(args, cleanup)
 
 
-def smoke(args) -> int:
-    """Every phase but the models-only mode (see the module docstring)."""
+def smoke(args, cleanup: contextlib.ExitStack) -> int:
+    """Every phase but the models-only mode (see the module docstring);
+    ``cleanup`` stops the baseline pool however the phases end."""
     import numpy as np
     import torch
 
     import repro_torch
-    from repro_torch import storage
-    from repro_torch.api import execute_plans
+    from repro_torch import obs, storage
+    from repro_torch.api import FederatedStore, execute_plans
+    from repro_torch.baselines import BASELINE_FACTORIES
+    from repro_torch.cluster import ClusterConfig, plan_range_partitions
     from repro_torch.core import (
         BitVector, DeepMappingConfig, DeepMappingStore, InferenceEngine, KeyEncoder,
-        MLPSpec, init_params,
+        MLPSpec, Table, init_params,
     )
     from repro_torch.core import trainer as trainer_lib
     from repro_torch.core.encoding import build_codecs
     from repro_torch.core.multikey import MultiKeyMapping
     from repro_torch.data import customer_demographics_like
     from repro_torch.data.tpch import orders_like
-    from repro_torch.fault import IntegrityError
+    from repro_torch.fault import DEFAULT_POLICY, FaultPlan, FaultSpec, IntegrityError, OwnerFailure
     from repro_torch.kernels import bitvector as bvk
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_mlp as fm
@@ -1324,6 +1380,7 @@ def smoke(args) -> int:
                 "morsels": ex.morsels, "kernel_filtered": ex.kernel_filtered,
                 "rows_decoded": ex.rows_decoded, "rows_matched": ex.rows_matched,
                 "plan_cache": ex.plan_cache, "stages": list(ex.plan),
+                "retries": ex.retries, "owners_failed": list(ex.owners_failed),
                 "split_s": {k: getattr(ex, k) for k in ("route_s", "infer_s", "exist_s",
                                                          "aux_s", "filter_s", "decode_s",
                                                          "agg_s", "gather_s", "total_s")},
@@ -1367,7 +1424,384 @@ def smoke(args) -> int:
          point_keys=int(qk.size), range=[lo, hi], launches=query_launches)
     del loaded
 
-    # ---------------------------------------------------- 9. correlated
+    # ------------------------------------------------------- 9. cluster
+    # The reference's default cluster (ClusterConfig(): 4 range shards,
+    # the 4 that benchmarks/bench_shards.py runs) over the SF1 orders
+    # table, every shard trained on the card with the train phase's
+    # PAPER_STORE config through repro_torch.build(..., cluster=...).
+    # The shards train in a thread pool, so K2 launches from several
+    # host threads at once; lookups and plans visit the shards on the
+    # fan-out pool.  Checked: every key, absent and out-of-capacity key
+    # through lookup (serial) and a where_keys plan (fan-out), the two
+    # byte-identical and, on present rows, equal to the train phase's
+    # single store; the query phase's plans; 10,000 mutations at the
+    # tail of the key space (new and recent orders, the last shard's
+    # range) and a retrain of the shards they dirtied; save and reopen;
+    # a replicate and a partition federation with an AB baseline; a
+    # quarantined shard; injected shard and member faults.  Every plan
+    # without an injected fault retries nothing.
+    def retries_total():
+        metric = obs.registry().get("deepmap_fault_retries_total")
+        return 0.0 if metric is None else sum(v for _, v in metric.items())
+
+    def no_retries(name, ex):
+        check(ex.retries == 0 and ex.owners_failed == (),
+              f"cluster: {name} retried ({ex.retries}) or lost owners {ex.owners_failed}")
+
+    def split(ex, keys, wall):
+        return {"keys": int(keys), "wall_s": wall, "keys_per_s": keys / wall,
+                **{k: getattr(ex, k) for k in ("route_s", "infer_s", "exist_s", "aux_s",
+                                               "decode_s", "gather_s", "total_s")},
+                "shards_visited": ex.shards_visited, "morsels": ex.morsels,
+                "stages": list(ex.plan)}
+
+    def same_answers(name, a, b, rows=slice(None)):
+        check(np.array_equal(a[1][rows], b[1][rows]), f"cluster: {name}: existence differs")
+        for c in b[0]:
+            x, y = a[0][c][rows], b[0][c][rows]
+            check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
+                  f"cluster: {name}: column {c} differs")
+
+    cl_config = ClusterConfig()
+    check(cl_config.num_shards == 4 and cl_config.policy == "range",
+          "ClusterConfig's defaults are not the reference's 4 range shards")
+    # PAPER_STORE as trained in the train phase; any modified byte marks
+    # a shard dirty, so retrain() rebuilds exactly the shards mutated.
+    cl_cfg = dataclasses.replace(train_cfg, retrain_after_modified_bytes=1)
+    cl_shard_of = plan_range_partitions(train_table.keys, cl_config.num_shards).shard_of
+    # Per-shard training and T_aux evaluation, recorded from the build's
+    # threads: a thread's train record is completed by the evaluation
+    # that follows it in the same thread, which names the shard.
+    rec_lock = threading.Lock()
+    open_rec: dict = {}
+    shard_recs: dict = {}
+    real_eval = trainer_lib.evaluate_misclassified_engine
+
+    def shard_train(*a, **kw):
+        t_start = time.perf_counter()
+        out = real_train(*a, **kw)
+        with rec_lock:
+            open_rec[threading.get_ident()] = {
+                "train_s": time.perf_counter() - t_start, "epochs": len(out[2]),
+                "steps": int(out[1].step), "last_loss": out[2][-1]}
+        return out
+
+    def shard_eval(engine, keys, *a, **kw):
+        t_start = time.perf_counter()
+        out = real_eval(engine, keys, *a, **kw)
+        with rec_lock:
+            rec = open_rec.pop(threading.get_ident())
+            rec.update(eval_s=time.perf_counter() - t_start, rows=int(keys.size))
+            shard_recs[int(cl_shard_of(keys[:1])[0])] = rec
+        return out
+
+    def hooked(fn):
+        trainer_lib.train, trainer_lib.evaluate_misclassified_engine = shard_train, shard_eval
+        try:
+            t_start = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t_start
+        finally:
+            trainer_lib.train, trainer_lib.evaluate_misclassified_engine = real_train, real_eval
+
+    # The train phase's single store answers the cluster's probe before
+    # the counts are zeroed, so its launches count on no path.
+    n_tr = train_table.num_rows
+    cl_probe = np.concatenate([train_table.keys, absent, out_cap])
+    single = tstore.lookup(cl_probe)
+    retries_0 = retries_total()
+    reset_launches()
+    cluster, cl_build_s = hooked(
+        lambda: repro_torch.build(train_table, cl_cfg, cluster=cl_config, device=dev))
+    cl_build_launches = read_launches()
+    build_recs = dict(sorted(shard_recs.items()))
+    shard_recs.clear()
+    check(cluster.num_shards == 4 and sorted(build_recs) == [0, 1, 2, 3],
+          "cluster: not every shard trained once")
+    check(all(s.device.type == "cuda" and s.config.use_kernels for s in cluster.shards),
+          "cluster: a shard is not on the card with kernels on")
+    check(cl_build_launches["fused_mlp"] > 0,
+          "cluster: the build did not evaluate T_aux through K2")
+    cl_shards = [{"shard": i, "rows": s.num_rows, "aux_rows": s.aux.num_rows,
+                  "memorized_fraction": s.memorized_fraction(),
+                  "compression_ratio": s.compression_ratio(), "capacity": int(s.encoder.capacity),
+                  **build_recs[i]} for i, s in enumerate(cluster.shards)]
+
+    # Every key, the absent and the out-of-capacity keys: serial lookup,
+    # then a where_keys plan (fan-out on the shard pool).
+    before = read_launches()
+    t0 = time.perf_counter()
+    ser_v, ser_e, ser_st = cluster._lookup_with_stats(cl_probe, fanout=False)
+    ser_s = time.perf_counter() - t0
+    mid = read_launches()
+    t0 = time.perf_counter()
+    fan = cluster.query().where_keys(cl_probe).execute()
+    fan_s = time.perf_counter() - t0
+    after = read_launches()
+    check(fan.keys.tobytes() == cl_probe.tobytes(), "cluster: the plan's keys differ")
+    same_answers("fan-out against serial", (fan.values, fan.exists), (ser_v, ser_e))
+    check(bool(ser_e[:n_tr].all()) and not ser_e[n_tr:].any(),
+          "cluster: a present key reads absent, or an absent one present")
+    for c, col in train_table.columns.items():
+        check(np.array_equal(ser_v[c][:n_tr], col), f"cluster: column {c} is not lossless")
+    same_answers("against the single store", (ser_v, ser_e), single, slice(0, n_tr))
+    check(np.array_equal(ser_e, single[1]), "cluster: existence differs from the single store")
+    check(ser_st.shards_visited == 4 and fan.explain.shards_visited == 4,
+          "cluster: a lookup did not visit all 4 shards")
+    check("serial" in ser_st.plan and not ser_st.async_fanout and fan.explain.async_fanout,
+          "cluster: the lookups did not take the serial and fan-out paths")
+    no_retries("serial lookup", ser_st)
+    no_retries("fan-out lookup", fan.explain)
+    cl_lookups = {
+        "serial": {**split(ser_st, cl_probe.size, ser_s),
+                   "launches": {k: mid[k] - before[k] for k in mid}},
+        "fanout": {**split(fan.explain, cl_probe.size, fan_s),
+                   "launches": {k: after[k] - mid[k] for k in after}},
+    }
+    check(cl_lookups["serial"]["launches"]["fused_lookup"] > 0
+          and cl_lookups["fanout"]["launches"]["fused_lookup"] > 0,
+          "cluster: a lookup path did not launch K1")
+    del single, ser_v, fan
+
+    # The query phase's plans on the cluster, against the same oracles
+    # and pushdown(False).
+    before = read_launches()
+    cl_runs, cl_together_s = run_plans(cluster, sf1_plans)
+    after = read_launches()
+    for r in cl_runs:
+        check(r["retries"] == 0 and not r["owners_failed"], f"cluster: {r['plan']} retried")
+        check(any(s.startswith("scatter[") for s in r["stages"]),
+              f"cluster: {r['plan']} did not scatter")
+    cl_plan_launches = {k: after[k] - before[k] for k in after}
+    check(cl_plan_launches["fused_lookup_with_preds"] > 0,
+          "cluster: K1 ran with no predicate tables on the plans")
+
+    # 10,000 mutations at the tail of the key space: 4,000 new orders
+    # past the largest key, 3,000 updates and 3,000 deletes of the last
+    # shard's orders; re-checked, then the dirty shards retrained.
+    last = cluster.num_shards - 1
+    tail_rows = np.flatnonzero(cl_shard_of(train_table.keys) == last)
+    pick = rng.permutation(tail_rows)
+    cl_upd, cl_del = pick[:3000], pick[3000:6000]
+    cl_new = int(train_table.keys.max()) + 1 + np.sort(rng.choice(16_000, 4000, replace=False))
+    cl_ins = rand_rows(4000)
+    cl_upd_cols = rand_rows(3000)
+    cluster.insert(cl_new, cl_ins)
+    cluster.update(train_table.keys[cl_upd], cl_upd_cols)
+    cluster.delete(train_table.keys[cl_del])
+    live = np.ones(n_tr, dtype=bool)
+    live[cl_del] = False
+    cl_expect = {c: col.copy() for c, col in train_table.columns.items()}
+    for c in cl_expect:
+        cl_expect[c][cl_upd] = cl_upd_cols[c]
+    live_keys = np.concatenate([train_table.keys[live], cl_new])
+    live_cols = {c: np.concatenate([cl_expect[c][live], cl_ins[c]]) for c in cl_expect}
+
+    def check_live(name, s):
+        v, e = s.lookup(live_keys)
+        check(bool(e.all()), f"cluster: {name}: a live key reads as absent")
+        for c, col in live_cols.items():
+            check(np.array_equal(v[c], col), f"cluster: {name}: column {c} differs")
+        gone = np.concatenate([train_table.keys[cl_del], absent, out_cap])
+        check(not s.lookup(gone)[1].any(), f"cluster: {name}: a deleted or absent key reads present")
+
+    check_live("after the mutations", cluster)
+    dirty = cluster.dirty_shards()
+    check(dirty == [last], f"cluster: dirty shards {dirty}, expected [{last}]")
+    before = read_launches()
+    retrained, cl_retrain_s = hooked(cluster.retrain)
+    after = read_launches()
+    retrain_recs = dict(sorted(shard_recs.items()))
+    shard_recs.clear()
+    check(retrained == dirty and sorted(retrain_recs) == dirty and not cluster.dirty_shards(),
+          f"cluster: retrained {retrained}, expected {dirty}")
+    check(after["fused_mlp"] > before["fused_mlp"], "cluster: the retrain did not launch K2")
+    check(cluster.shards[last].device.type == "cuda", "cluster: the retrained shard left the card")
+    check_live("after the retrain", cluster)
+
+    # Persistence: save, reopen through repro_torch.open, the same answers.
+    live_probe = np.concatenate([live_keys, train_table.keys[cl_del], absent, out_cap])
+    live_want = cluster.lookup(live_probe)
+    cl_dir = ROOT / "build" / f"chip_smoke_cluster_{os.getpid()}"
+    shutil.rmtree(cl_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        cluster.save(str(cl_dir / "c"))
+        cl_save_s = time.perf_counter() - t0
+        cl_bytes = {str(f.relative_to(cl_dir / "c")): f.stat().st_size
+                    for f in sorted((cl_dir / "c").rglob("*")) if f.is_file()}
+        t0 = time.perf_counter()
+        reopened = repro_torch.open(str(cl_dir / "c"))
+        cl_load_s = time.perf_counter() - t0
+        check(type(reopened) is type(cluster) and reopened.num_shards == 4
+              and all(s.device.type == "cuda" for s in reopened.shards),
+              "cluster: reopened as another kind, or off the card")
+        same_answers("after the reopen", reopened.lookup(live_probe), live_want)
+        del reopened
+        check(retries_total() == retries_0, "cluster: a fault-free path retried")
+
+        # Federations with the AB baseline over the cluster's content.
+        t0 = time.perf_counter()
+        ab = BASELINE_FACTORIES["AB"](Table(keys=live_keys, columns=live_cols))
+        ab_build_s = time.perf_counter() - t0
+        fprobe = np.concatenate([live_keys, absent])
+        n_live = live_keys.size
+
+        def check_fed(name, res):
+            check(bool(res.exists[:n_live].all()) and not res.exists[n_live:].any(),
+                  f"cluster: {name}: existence differs")
+            for c, col in live_cols.items():
+                check(np.array_equal(np.asarray(res.values[c])[:n_live], col),
+                      f"cluster: {name}: column {c} differs")
+
+        rep = FederatedStore([cluster, ab], mode="replicate", policy="round_robin")
+        before = read_launches()
+        t0 = time.perf_counter()
+        rres = rep.query().where_keys(fprobe).morsel(1 << 16).execute()
+        rep_s = time.perf_counter() - t0
+        after = read_launches()
+        check_fed("replicate federation", rres)
+        no_retries("replicate federation", rres.explain)
+        check(rep._rr > 2 and after["fused_lookup"] > before["fused_lookup"],
+              "cluster: round robin did not reach both replicas")
+        median = int(np.median(live_keys))
+        part = FederatedStore([cluster, ab], mode="partition", boundaries=[median])
+        t0 = time.perf_counter()
+        pres = part.query().where_keys(fprobe).execute()
+        part_s = time.perf_counter() - t0
+        check_fed("partition federation", pres)
+        no_retries("partition federation", pres.explain)
+        for build_q in (lambda s: s.select("o_clerk").where("o_orderstatus", "==", "O").scan(),
+                        lambda s: s.group_by("o_orderstatus").agg("count", ("sum", "o_clerk"))
+                        .scan()):
+            got, want = build_q(part.query()).execute(), build_q(cluster.query()).execute()
+            no_retries("partition federation plan", got.explain)
+            # Values equal, not bytes: an AB member and a retrained shard
+            # may decode a column to another integer width.
+            check(same_result(got, want) if hasattr(want, "aggregates") else
+                  got.keys.tobytes() == want.keys.tobytes()
+                  and all(np.array_equal(got.values[c], want.values[c]) for c in want.values),
+                  "cluster: the partition federation's plan differs")
+        check(retries_total() == retries_0, "cluster: a fault-free path retried")
+
+        # Replicate failover: member 0 (the cluster) killed at collect.
+        kill = FaultPlan([FaultSpec(site="member_collect", owner="member:0", kind="raise")])
+        with kill.activate():
+            fres = rep.query().where_keys(fprobe).morsel(1 << 16).execute()
+        check_fed("replicate federation, member 0 down", fres)
+        check(kill.fired > 0 and len(fres.explain.owners_failed) > 0,
+              "cluster: the replicate federation did not fail over")
+
+        # A shard fault recovered by one retry; a dead shard in raise mode.
+        once = FaultPlan([FaultSpec(site="shard_collect", owner="shard:2", kind="raise",
+                                    times=1)])
+        with once.activate():
+            ores = cluster.query().where_keys(live_probe).execute()
+        same_answers("after one retried shard fault", (ores.values, ores.exists), live_want)
+        check(once.fired == 1 and ores.explain.retries == 1 and ores.explain.owners_failed == (),
+              "cluster: a shard fault was not recovered by exactly one retry")
+        dead = FaultPlan([FaultSpec(site="shard_collect", owner="shard:0", kind="raise")])
+        dead_error = None
+        with dead.activate():
+            try:
+                cluster.query().where_keys(live_probe).execute()
+            except OwnerFailure as err:
+                dead_error = err
+        check(dead_error is not None and [o.owner for o in dead_error.owners] == ["shard:0"]
+              and dead_error.owners[0].attempts == DEFAULT_POLICY.max_attempts,
+              "cluster: a dead shard did not surface as OwnerFailure")
+
+        # Quarantine: one bit flipped in shard 1's aux.msgpack.
+        flipped = cl_dir / "flipped"
+        shutil.copytree(cl_dir / "c", flipped)
+        aux_file = flipped / "shard_00001" / "aux.msgpack"
+        blob = bytearray(aux_file.read_bytes())
+        blob[len(blob) // 2] ^= 0x01
+        aux_file.write_bytes(bytes(blob))
+        refused = None
+        try:
+            repro_torch.open(str(flipped))
+        except IntegrityError as err:
+            refused = str(err)
+        check(refused is not None and "aux.msgpack" in refused,
+              "cluster: a flipped aux.msgpack bit was not refused")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            q = repro_torch.open(str(flipped), on_corrupt="quarantine")
+        check(q.quarantined_shards() == [1]
+              and any("quarantining shard 1" in str(w.message) for w in caught),
+              "cluster: shard 1 was not quarantined")
+        qres = q.query().where_keys(live_probe).on_error("partial").execute()
+        healthy = q.partitioner.shard_of(live_probe) != 1
+        same_answers("quarantined, healthy shards", (qres.values, qres.exists), live_want,
+                     healthy)
+        check(not qres.exists[~healthy].any()
+              and qres.explain.keys_unresolved == int((~healthy).sum())
+              and len(qres.explain.owners_failed) == 1,
+              "cluster: the quarantined shard's keys were not reported unresolved")
+        b = q.partitioner.boundaries
+        scan_refused = None
+        try:
+            q.query().where_range(int(b[0]), int(b[1])).execute()
+        except IntegrityError as err:
+            scan_refused = str(err)
+        check(scan_refused is not None and "quarantined" in scan_refused,
+              "cluster: a scan over the quarantined range did not raise")
+        del q
+    finally:
+        shutil.rmtree(cl_dir, ignore_errors=True)
+    cl_launches = paths["cluster"] = read_launches()
+    check(cl_launches["fused_lookup"] > 0 and cl_launches["fused_lookup_with_preds"] > 0
+          and cl_launches["fused_mlp"] > 0, "cluster: K1 (with predicate tables) or K2 missing")
+    cl_st = cluster.engines.stats
+    check(cl_st.fused_calls > 0 and cl_st.jit_calls == 0, "cluster: a shard left the fused tier")
+    emit("cluster", rows=n_tr, config={"num_shards": cl_config.num_shards,
+                                       "policy": cl_config.policy,
+                                       "max_workers": cl_config.max_workers,
+                                       "retrain_after_modified_bytes": 1},
+         boundaries=cluster.partitioner.boundaries.tolist(), build_s=cl_build_s,
+         shards=cl_shards, memorized_fraction=cluster.memorized_fraction(),
+         aux_rows=sum(s.aux.num_rows for s in cluster.shards),
+         compression_ratio=cluster.compression_ratio(), size_bytes=cluster.size_bytes(),
+         size_breakdown=cluster.size_breakdown(), build_launches=cl_build_launches,
+         absent_checked=int(absent.size), out_of_capacity_checked=int(out_cap.size),
+         lookups=cl_lookups, plans=cl_runs, execute_plans_s=cl_together_s,
+         plan_launches=cl_plan_launches, mutations=10_000, dirty_shards=dirty,
+         retrained=retrained, retrain_s=cl_retrain_s, retrain_shards=retrain_recs,
+         save_s=cl_save_s, load_s=cl_load_s, manifest_bytes=cl_bytes["manifest.msgpack"],
+         cluster_bytes=sum(cl_bytes.values()), ab_build_s=ab_build_s,
+         federation={"replicate_s": rep_s, "replicate_morsels": rres.explain.morsels,
+                     "replicate_dispatches": rep._rr, "partition_s": part_s,
+                     "partition_boundary": median, "failover_fired": kill.fired,
+                     "failover_owners_failed": list(fres.explain.owners_failed),
+                     "health": rep.health.snapshot()},
+         faults={"retried_fired": once.fired, "retried_retries": ores.explain.retries,
+                 "dead_fired": dead.fired, "dead_owner": dead_error.owners[0].describe()},
+         quarantine={"refused": refused, "keys_unresolved": qres.explain.keys_unresolved,
+                     "scan_refused": scan_refused},
+         stats={k: getattr(cl_st, k) for k in ("dispatches", "fused_calls", "pallas_calls",
+                                               "fused_streamed_calls", "jit_calls")},
+         launches=cl_launches)
+    cluster.close()
+    del cluster, rep, part, ab, rres, pres, fres, ores, qres, live_want
+
+    # The baseline pool (phase 12's stores) starts here, beside the
+    # correlated and multikey phases, on all cores but two: a training
+    # step there is launch-bound on one core.  Spawned workers, never
+    # forked from this process, which holds a CUDA context.
+    bl_dir = ROOT / "build" / f"chip_smoke_baselines_{os.getpid()}"
+    bl_dir.mkdir(parents=True, exist_ok=True)
+    cleanup.callback(shutil.rmtree, bl_dir, ignore_errors=True)
+    bl_workers = max(1, min(len(BASELINE_JOBS), (os.cpu_count() or 1) - 2))
+    bl_t0 = time.perf_counter()
+    bl_pool = multiprocessing.get_context("spawn").Pool(bl_workers)
+    cleanup.callback(bl_pool.join)
+    cleanup.callback(bl_pool.terminate)
+    bl_jobs = [bl_pool.apply_async(baseline_job, (t, f, args.seed, str(bl_dir)))
+               for t, f in BASELINE_JOBS]
+
+    # --------------------------------------------------- 10. correlated
     # TPC-DS customer_demographics at its full 1,920,800 rows (every
     # column a periodic function of the key) under the reference
     # benchmark's DM-R config, built with repro_torch.build on the card:
@@ -1394,7 +1828,7 @@ def smoke(args) -> int:
     check(len(cd_hist) > 0 and all(np.isfinite(cd_hist)), "DM-R training gave no finite loss")
     n_cd = cd_table.num_rows
     cd_cap = cd_store.encoder.capacity
-    cd_absent = np.concatenate([[0], rng.integers(n_cd + 1, cd_cap, PROBE_ABSENT - 1)])
+    cd_absent = np.concatenate([[0], rng.integers(n_cd + 1, cd_cap, 100_000 - 1)])
     cd_out = np.concatenate([rng.integers(cd_cap, 2**40, 1000), -rng.integers(1, 2**31, 1000)])
     t0 = time.perf_counter()
     cd_vals, cd_ex, cd_ls = cd_store._lookup_with_stats(cd_table.keys)
@@ -1503,7 +1937,7 @@ def smoke(args) -> int:
          build_launches=cd_build_launches, launches=cd_launches,
          kernels_vs_plain=cd_kernels)
 
-    # ------------------------------------------------------ 10. multikey
+    # ------------------------------------------------------ 11. multikey
     # MultiKeyMapping over a customer_demographics prefix under DM-R, two
     # key choices: (key, credit rating) packs into int32 and serves
     # through K1; (key, purchase estimate) packs past int32 (raw integers
@@ -1514,7 +1948,9 @@ def smoke(args) -> int:
     mk_choices = (("__key__", "cd_credit_rating"), ("__key__", "cd_purchase_estimate"))
     reset_launches()
     t0 = time.perf_counter()
-    mk = MultiKeyMapping.build(mk_table, mk_choices, cd_cfg, device=dev)
+    mk_cfg = dataclasses.replace(cd_cfg, train=dataclasses.replace(cd_cfg.train,
+                                                                   epochs=MK_EPOCHS))
+    mk = MultiKeyMapping.build(mk_table, mk_choices, mk_cfg, device=dev)
     torch.cuda.synchronize()
     mk_build_s = time.perf_counter() - t0
     mk_build_launches = read_launches()
@@ -1576,39 +2012,23 @@ def smoke(args) -> int:
             s, np.concatenate([edges_mk, rng.permutation(np.concatenate([
                 rng.choice(packed, 61_440, replace=False),
                 rng.integers(0, mcap, 65_536 - 61_440 - edges_mk.size)]))]))
-    emit("multikey", rows=MK_ROWS, choices=by_choice, build_s=mk_build_s,
+    emit("multikey", rows=MK_ROWS, epochs=MK_EPOCHS, choices=by_choice, build_s=mk_build_s,
          build_launches=mk_build_launches, size_bytes=mk.size_bytes(), launches=mk_launches)
     del mk
 
-    # ----------------------------------------------------- 11. baselines
-    # The two DeepMapping stores (train's SF1 store, correlated's DM-R
-    # store) probed first, then every AB/HB factory on customer_demographics
-    # and on SF1 orders.  Baselines are host code: a pool of spawned
-    # workers (never forked from this process, which holds a CUDA
-    # context), one per core, builds, checks, saves and bit-flips them
-    # once the card's phases are done, and stops with the phase however
-    # it ends.  Each saved file is reopened here through repro_torch.open
-    # and its lookup timed as the DeepMapping stores' were, with at most
-    # one worker still running beside it (``workers_beside``).
-    reset_launches()
-    tables = {"orders": train_table, "customer_demographics": cd_table}
-    dm_rows = []
-    for name, s, tname, bs in (("DM (PAPER_STORE, train)", tstore, "orders", tbuild_s),
-                               ("DM-R (correlated)", cd_store, "customer_demographics",
-                                cd_build_s)):
-        t = tables[tname]
-        keys, present = baseline_probe(t, args.seed)
-        t0 = time.perf_counter()
-        values, exists = s.lookup(keys)
-        wall = time.perf_counter() - t0
-        check_probe(name, t, keys, present, values, exists)
-        dm_rows.append({"table": tname, "store": name, "rows": t.num_rows,
-                        "size_bytes": s.size_bytes(), "ratio": s.compression_ratio(),
-                        "build_s": bs, "lookup_s": wall, "lookup_keys_per_s": keys.size / wall})
-    paths["baselines"] = read_launches()
-    out_dir = ROOT / "build" / f"chip_smoke_baselines_{os.getpid()}"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    workers = max(1, min(len(BASELINE_JOBS), os.cpu_count() or 1))
+    # ----------------------------------------------------- 12. baselines
+    # Every AB/HB factory on customer_demographics and on SF1 orders,
+    # built, checked, saved, bit-flipped and reopened by the pool started
+    # before phase 10; the hash stores' reopened lookups are timed in
+    # their workers (about 15,000-40,000 keys/s, a core's work either
+    # way).  Each array store's saved file is reopened here through
+    # repro_torch.open and its lookup timed as the DeepMapping stores'
+    # are, with at most one worker still running beside it
+    # (``workers_beside``), and again alone if one was.  The two
+    # DeepMapping stores (train's SF1 store, correlated's DM-R store) are
+    # probed the same way once the pool is done.
+    tables = {"orders": train_table, "customer_demographics": cd_table,
+              "customer_demographics_prefix": customer_demographics_like(n=HBCL_CD_ROWS)}
 
     def reopen_and_time(table_name, path):
         """Reopen a saved file here, time its lookup of the probe, and
@@ -1626,56 +2046,68 @@ def smoke(args) -> int:
         return {"load_s": load_s, "lookup_s": lookup_s, "lookup_keys_per_s": keys.size / lookup_s,
                 "type": type(reopened).__name__, "digest": answers_digest(values, exists)}
 
-    files = [baseline_file(str(out_dir), t, f) for t, f in BASELINE_JOBS]
-    try:
-        t0 = time.perf_counter()
-        pool = multiprocessing.get_context("spawn").Pool(workers)
-        try:
-            jobs = [pool.apply_async(baseline_job, (t, f, args.seed, str(out_dir)))
-                    for t, f in BASELINE_JOBS]
-            # A saved file is reopened and timed once at most one job is
-            # left (HBC-L on customer_demographics, the longest build; its
-            # own file is timed while its worker looks the probe up on the
-            # store as built): that lone worker holds one core.
-            lone = [None] * len(jobs)
-            while True:
-                running = sum(not j.ready() for j in jobs)
-                todo = [i for i, f in enumerate(files) if lone[i] is None and os.path.exists(f)]
-                if not todo and not running:
-                    break
-                if running > 1 or not todo:
-                    time.sleep(0.05)
-                    continue
-                for i in todo:
-                    lone[i] = reopen_and_time(BASELINE_JOBS[i][0], files[i])
-                    lone[i]["workers_beside"] = running
-            stores = [j.get() for j in jobs]  # a failed check in a worker raises here
-        finally:
-            pool.terminate()
-            pool.join()
-        pool_s = time.perf_counter() - t0
-        # The array stores (the baselines whose lookups rival DeepMapping's)
-        # timed beside that worker are timed again with nothing beside them.
-        for i, row in enumerate(stores):
-            if lone[i]["workers_beside"] and row["type"] == "ArrayStore":
+    files = [baseline_file(str(bl_dir), t, f) for t, f in BASELINE_JOBS]
+    timed_here = [f.startswith("AB") for _, f in BASELINE_JOBS]
+    waited_t0 = time.perf_counter()
+    # An array store's saved file is reopened and timed once at most one
+    # job is left: that lone worker holds one core.
+    lone = [None] * len(bl_jobs)
+    while True:
+        running = sum(not j.ready() for j in bl_jobs)
+        todo = [i for i, f in enumerate(files)
+                if timed_here[i] and lone[i] is None and os.path.exists(f)]
+        if not todo and not running:
+            break
+        if running > 1 or not todo:
+            time.sleep(0.05)
+            continue
+        for i in todo:
+            lone[i] = reopen_and_time(BASELINE_JOBS[i][0], files[i])
+            lone[i]["workers_beside"] = running
+    stores = [j.get() for j in bl_jobs]  # a failed check in a worker raises here
+    pool_s = time.perf_counter() - bl_t0
+    waited_s = time.perf_counter() - waited_t0
+    bl_pool.terminate()
+    bl_pool.join()
+    # The array stores (the baselines whose lookups rival DeepMapping's)
+    # timed beside that worker are timed again with nothing beside them.
+    for i, row in enumerate(stores):
+        digest = row.pop("digest")
+        if timed_here[i]:
+            if lone[i]["workers_beside"]:
                 beside = lone[i]
                 lone[i] = {**reopen_and_time(row["table"], files[i]), "workers_beside": 0,
                            "beside": {k: beside[k] for k in ("load_s", "lookup_s",
                                                               "lookup_keys_per_s")}}
             label = f"{row['store']} on {row['table']}"
             check(lone[i].pop("type") == row["type"], f"{label}: reopened as another kind")
-            check(lone[i].pop("digest") == row.pop("digest"),
+            check(lone[i].pop("digest") == digest,
                   f"{label}: the reopened store answers otherwise than before its save")
-            row.update(lone[i])
-            os.remove(files[i])
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
-    emit("baselines", workers=workers, pool_s=pool_s,
+            row["worker"] = {k: row[k] for k in ("load_s", "lookup_s", "lookup_keys_per_s")}
+            row.update(lone[i], timed_in="main")
+        os.remove(files[i])
+    reset_launches()
+    dm_rows = []
+    for name, s, tname, bs in (("DM (PAPER_STORE, train)", tstore, "orders", tbuild_s),
+                               ("DM-R (correlated)", cd_store, "customer_demographics",
+                                cd_build_s)):
+        t = tables[tname]
+        keys, present = baseline_probe(t, args.seed)
+        t0 = time.perf_counter()
+        values, exists = s.lookup(keys)
+        wall = time.perf_counter() - t0
+        check_probe(name, t, keys, present, values, exists)
+        dm_rows.append({"table": tname, "store": name, "rows": t.num_rows,
+                        "size_bytes": s.size_bytes(), "ratio": s.compression_ratio(),
+                        "build_s": bs, "lookup_s": wall, "lookup_keys_per_s": keys.size / wall})
+    paths["baselines"] = read_launches()
+    emit("baselines", workers=bl_workers, pool_s=pool_s, waited_s=waited_s,
+         pool_beside=["correlated", "multikey"],
          probe={"present": PROBE_PRESENT, "absent": PROBE_ABSENT}, stores=stores,
          deepmapping=dm_rows, launches=paths["baselines"])
     del cd_store
 
-    # -------------------------------------------------------- 12. times
+    # -------------------------------------------------------- 13. times
     n = 65536
     kp = rng.choice(table.keys, n).astype(np.int32)
     kt = torch.from_numpy(kp).to(dev)
@@ -1766,9 +2198,6 @@ def smoke(args) -> int:
         "plan_uncached_ms": host_ms(lambda: fm.tile_plan.__wrapped__(spec)),
         "all_candidates_ms": host_ms(lambda: list(fm._candidate_plans(spec))),
     }
-    # The store's heads under wider trunks, under their own plans and
-    # every other that fits.
-    models = model_times(dev, args.seed, plans=True)
     # A yardstick of fp32 GEMM on this card, not a library time for K1 or
     # K2: one torch.matmul of the trunk's dense layer at this batch, TF32 off.
     xd = torch.rand((n, 256), device=dev)
@@ -1791,7 +2220,7 @@ def smoke(args) -> int:
     wall = time.perf_counter() - t0
     emit("times", nvidia_smi=smi, keys_per_launch=n, flops_per_key=flops_key,
          peak_fp32_flops=PEAK_FP32_FLOPS, peak_bytes_per_s=PEAK_BYTES_PER_S,
-         kernels=kernels, ms_by_plan=by_plan, models=models, wrapper_host=host,
+         kernels=kernels, ms_by_plan=by_plan, wrapper_host=host,
          dense_layer_cublas_ms=dense_ms,
          dense_layer_cublas_tflops=2 * n * 256 * 256 / (dense_ms * 1e-3) / 1e12,
          ptxas_by_instantiation=regs,

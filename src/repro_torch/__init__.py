@@ -7,10 +7,13 @@ CUDA device unless given ``device=``; without a GPU they raise.  The
 fused lookup and fused MLP kernels are hand-written CUDA
 (``csrc/fused_mlp.cu``), built with ``nvcc`` at first use.
 
-- ``repro_torch.open(path)``           — load a store saved by either
-                                         package (the reference's v2
-                                         directory layout).
-- ``repro_torch.build(table, config)`` — build a single store.
+- ``repro_torch.open(path)``           — load a store or cluster saved
+                                         by either package (the
+                                         reference's v2 directory layout
+                                         and cluster manifest).
+- ``repro_torch.build(table, config)`` — build a single store, or a
+                                         sharded cluster with
+                                         ``cluster=ClusterConfig(...)``.
 - ``store.query()...execute()``        — the plan-based query layer.
 """
 

@@ -1,9 +1,10 @@
 """Unified store API of the port: the :class:`MappingStore` protocol,
-the plan-based streaming query layer, and the ``repro_torch.open`` /
-``repro_torch.build`` entrypoints — ``repro.api`` without the
-federation (ROADMAP item M8).
+the plan-based streaming query layer, cross-store federation, and the
+``repro_torch.open`` / ``repro_torch.build`` entrypoints — what
+``repro.api`` exports.
 
-Store implementations (``repro_torch.core``) subclass
+Store implementations (``repro_torch.core``, ``repro_torch.cluster``,
+``repro_torch.baselines``) subclass
 :class:`MappingStore`; this package never imports them at module level
 (they import us), so the dependency direction stays acyclic.
 """
@@ -18,6 +19,7 @@ from repro_torch.api.executor import (  # noqa: F401
     next_morsel_rows,
     stream_plan,
 )
+from repro_torch.api.federated import FederatedStore  # noqa: F401
 from repro_torch.api.plan import (  # noqa: F401
     AggregateResult,
     AggSpec,

@@ -3,18 +3,21 @@
 The port of ``repro.api.entry``.  ``open`` sniffs the on-disk format in
 the reference's order:
 
-* directory with ``manifest.msgpack``  -> sharded cluster (not ported
-  yet: raises, naming ROADMAP item M8);
+* directory with ``manifest.msgpack``  -> sharded cluster
+  (:func:`~repro_torch.cluster.sharded_store.load_sharded_store`);
 * directory with ``meta.msgpack``      -> single DeepMapping store
   (:func:`~repro_torch.core.serialize.load_store`);
 * msgpack file with a ``kind`` header  -> AB/HB baseline store
   (:func:`~repro_torch.baselines.partitioned.load_baseline_store`).
 
-``build`` trains/assembles a single
-:class:`~repro_torch.core.hybrid.DeepMappingStore` from a
-:class:`~repro_torch.core.table.Table`.  Both run on the CUDA device
-unless given ``device=`` (a baseline store is host code and ignores
-it).  All imports are lazy so ``import repro_torch`` stays light.
+``build`` trains/assembles a store from a
+:class:`~repro_torch.core.table.Table`: a single
+:class:`~repro_torch.core.hybrid.DeepMappingStore` by default, or a
+sharded cluster when a
+:class:`~repro_torch.cluster.sharded_store.ClusterConfig` with
+``num_shards > 1`` is given.  Both run on the CUDA device unless given
+``device=`` (a baseline store is host code and ignores it).  All imports
+are lazy so ``import repro_torch`` stays light.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import os
 #: the error-message inventory).
 SUPPORTED_FORMATS = (
     "sharded cluster: directory containing manifest.msgpack "
-    "(ShardedDeepMappingStore.save; not ported yet, M8)",
+    "(ShardedDeepMappingStore.save)",
     "single DeepMapping store: directory containing meta.msgpack "
     "(DeepMappingStore.save)",
     "baseline overlay store: single msgpack file with an "
@@ -34,16 +37,15 @@ SUPPORTED_FORMATS = (
 )
 
 
-def open(path: str, pool=None, device=None):  # noqa: A001 — deliberate builtin shadow inside repro_torch.*
+def open(path: str, pool=None, device=None, on_corrupt: str = "raise"):  # noqa: A001 — deliberate builtin shadow inside repro_torch.*
     """Load a saved store, sniffing the on-disk format.
 
-    A **directory** holding ``meta.msgpack`` is a single DeepMapping
-    store, loaded onto ``device`` (CUDA by default).  A **file** is
-    parsed as a baseline msgpack blob and dispatched on its ``kind``
-    header (``array_store``/``hash_store``); baselines are host code,
-    so ``device`` does not apply to them.  A directory holding
-    ``manifest.msgpack`` is a sharded cluster, which the port cannot
-    load yet: it raises ``NotImplementedError`` naming ROADMAP item M8.
+    A **directory** holding ``manifest.msgpack`` is a sharded cluster,
+    every shard loaded onto ``device`` (CUDA by default); a directory
+    holding ``meta.msgpack`` is a single DeepMapping store, loaded onto
+    ``device``.  A **file** is parsed as a baseline msgpack blob and
+    dispatched on its ``kind`` header (``array_store``/``hash_store``);
+    baselines are host code, so ``device`` does not apply to them.
     Anything else raises a ``ValueError`` (or
     ``FileNotFoundError`` when ``path`` does not exist) that lists the
     supported formats.  ``pool`` is the shared
@@ -53,7 +55,11 @@ def open(path: str, pool=None, device=None):  # noqa: A001 — deliberate builti
     Every artifact's crc32 recorded at save time is verified — a corrupt
     or truncated artifact raises
     :class:`~repro_torch.fault.errors.IntegrityError` rather than
-    decoding into wrong values.  A ``<path>.tmp`` with no ``<path>``
+    decoding into wrong values.  ``on_corrupt`` applies to sharded
+    clusters: ``'quarantine'`` degrades a cluster with corrupt shard
+    directories to its healthy shards (see
+    :func:`~repro_torch.cluster.sharded_store.load_sharded_store`)
+    instead of refusing outright.  A ``<path>.tmp`` with no ``<path>``
     means a save died before its atomic rename — that raises a
     ``ValueError`` naming the interruption, because there is nothing
     verified to load.
@@ -68,9 +74,10 @@ def open(path: str, pool=None, device=None):  # noqa: A001 — deliberate builti
         )
     if os.path.isdir(path):
         if os.path.exists(os.path.join(path, "manifest.msgpack")):
-            raise NotImplementedError(
-                f"{path!r} is a sharded cluster; the port loads clusters "
-                f"with ROADMAP item M8 (cluster, federation, failure)"
+            from repro_torch.cluster.sharded_store import ShardedDeepMappingStore
+
+            return ShardedDeepMappingStore.load(
+                path, pool=pool, on_corrupt=on_corrupt, device=device
             )
         if os.path.exists(os.path.join(path, "meta.msgpack")):
             from repro_torch.core.hybrid import DeepMappingStore
@@ -101,21 +108,32 @@ def open(path: str, pool=None, device=None):  # noqa: A001 — deliberate builti
 def build(
     table,
     config=None,
+    cluster=None,
     pool=None,
     verbose: bool = False,
     spec=None,
     params=None,
     device=None,
 ):
-    """Build a single store from a table on ``device`` (CUDA by default).
+    """Build a store from a table on ``device`` (CUDA by default).
 
     ``config`` is a :class:`~repro_torch.core.hybrid.DeepMappingConfig`
-    (default-constructed when omitted).  ``spec``/``params`` skip
-    training.  The reference's ``cluster=`` argument comes with M8.
+    (default-constructed when omitted); pass ``cluster`` (a
+    :class:`~repro_torch.cluster.sharded_store.ClusterConfig`) with
+    ``num_shards > 1`` to build a sharded cluster instead of a single
+    store.  ``spec``/``params`` skip training (single store only).
     """
     from repro_torch.core.hybrid import DeepMappingConfig, DeepMappingStore
 
     config = config if config is not None else DeepMappingConfig()
+    if cluster is not None and cluster.num_shards > 1:
+        from repro_torch.cluster.sharded_store import ShardedDeepMappingStore
+
+        if spec is not None or params is not None:
+            raise ValueError("spec/params pre-seeding is single-store only")
+        return ShardedDeepMappingStore.build(
+            table, config, cluster, pool=pool, verbose=verbose, device=device
+        )
     return DeepMappingStore.build(
         table, config, pool=pool, spec=spec, params=params, verbose=verbose,
         device=device,

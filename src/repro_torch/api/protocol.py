@@ -5,10 +5,11 @@ one ``lookup`` over trees of models; NeurStore one model-store API).
 A copy of ``repro.api.protocol`` with its imports rewritten to the port, which
 imports nothing of ``repro``.
 
-The port's :class:`~repro_torch.core.hybrid.DeepMappingStore` subclasses
-:class:`MappingStore`, as do the AB/HB baselines
-(:mod:`repro_torch.baselines`; the sharded store follows with ROADMAP
-item M8); all three are exercised by the port's conformance cases
+Every store of the port —
+:class:`~repro_torch.core.hybrid.DeepMappingStore`,
+:class:`~repro_torch.cluster.sharded_store.ShardedDeepMappingStore`, and
+the AB/HB baselines (:mod:`repro_torch.baselines`) — subclasses
+:class:`MappingStore` and is exercised by the port's conformance cases
 (``tests/test_torch_query.py``).
 
 Conformance contract (what the suite checks):

@@ -28,12 +28,11 @@ helpers; with no plan active they cost one attribute read:
 * :func:`corrupt` — deterministically flip one byte of an artifact
   payload (kind ``"corrupt"``, ``artifact_read`` site).
 
-Sites instrumented in the port: ``engine_dispatch`` (device inference
-dispatch) and ``artifact_read`` (persistence layer reads).  The
-reference's ``shard_collect`` and ``member_collect`` stay valid site
-names and come with the sharded store and the federation (ROADMAP item
-M8).  Every fired event counts into
-``deepmap_fault_injected_total{site,kind}``.
+Sites instrumented in the port, as in the reference: ``shard_collect``
+(per-shard visit in the sharded store), ``member_collect`` (per-member
+visit in the federation), ``engine_dispatch`` (device inference
+dispatch), and ``artifact_read`` (persistence layer reads).  Every fired
+event counts into ``deepmap_fault_injected_total{site,kind}``.
 """
 
 from __future__ import annotations

@@ -68,7 +68,7 @@ def bitvector_call(keys: torch.Tensor, words32: torch.Tensor, tile_n: int) -> to
             torch.cuda.current_stream(keys.device).cuda_stream,
         )
     build.raise_on(err, lib, "bitvector")
-    bitvector_call.launches += 1
+    build.count_launch(bitvector_call)
     return out
 
 

@@ -9,6 +9,7 @@ hash of its source and the flags, so an edited source is rebuilt.
 builds (if needed) and loads one.  Every library exports
 ``repro_error_string``, bound here; each kernel module binds its own
 entries through the ``bind`` it passes to :func:`library`.
+:func:`count_launch` is the launch counter the wrappers share.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ BUILD_INFO: Dict[str, dict] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -118,3 +120,14 @@ def raise_on(err: int, lib: ctypes.CDLL, what: str, hint: str = "") -> None:
             f"{what} kernel launch failed: CUDA error {err} "
             f"({lib.repro_error_string(err).decode()}){hint}"
         )
+
+
+def count_launch(call: Callable, *names: str) -> None:
+    """Add one to each named counter attribute of the wrapper ``call``
+    (``launches`` when none is named), under one lock: a cluster's build
+    and collect pools launch kernels from several host threads at once,
+    and ``call.launches += 1`` is a read and a write that two threads
+    can interleave."""
+    with _COUNT_LOCK:
+        for name in names or ("launches",):
+            setattr(call, name, getattr(call, name) + 1)

@@ -13,7 +13,8 @@ for tensors on the CPU it runs the plain version in
 ``repro_torch.kernels.ref``.  There is no fallback between the two:
 a build or launch failure raises.  The source is built at first use by
 ``repro_torch.kernels.build``.  Each call function counts its launches
-in ``<function>.launches``; ``fused_lookup_call.pred_launches`` counts
+in ``<function>.launches`` (through :func:`build.count_launch`, exact
+when several threads launch); ``fused_lookup_call.pred_launches`` counts
 K1's launches with predicate tables.
 
 :func:`tile_plan` computes each launch's tiling and layer schedule from
@@ -429,7 +430,7 @@ def _fused_mlp(digits, flat_weights, spec, tile_n, base_pad, card_pads, emit_cod
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, lib, "fused_mlp", plan)
-    fused_mlp_call.launches += 1
+    build.count_launch(fused_mlp_call)
     return codes if emit_codes else logits
 
 
@@ -515,9 +516,10 @@ def _fused_lookup(keys, pos_ops, words32, flat_weights, spec, tile_n, base_pad, 
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, lib, "fused_lookup", plan)
-    fused_lookup_call.launches += 1
     if pred_tables:
-        fused_lookup_call.pred_launches += 1
+        build.count_launch(fused_lookup_call, "launches", "pred_launches")
+    else:
+        build.count_launch(fused_lookup_call)
     return codes, exists, match
 
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch
 from repro_torch.core import DeepMappingConfig, DeepMappingStore, InferenceEngine, KeyEncoder
 from repro_torch.core import model as tmodel
 from repro_torch.data.tpch import orders_like
@@ -119,6 +120,20 @@ class TestDeviceDefaults:
         with pytest.raises(RuntimeError, match="CUDA"):
             tmodel.init_params(spec)
 
+    def test_cluster_without_device_raises(self, no_cuda, tmp_path):
+        from repro_torch.cluster import ClusterConfig, ShardedDeepMappingStore
+
+        table, _, _, _ = _small()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ShardedDeepMappingStore.build(table, DeepMappingConfig(), ClusterConfig(2))
+        cluster = ShardedDeepMappingStore.build(
+            table, DeepMappingConfig(shared=(8,), private=(4,)), ClusterConfig(2),
+            device="cpu")
+        assert all(s.device.type == "cpu" for s in cluster.shards)
+        cluster.save(str(tmp_path / "c"))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            repro_torch.open(str(tmp_path / "c"))
+
     def test_cpu_is_explicit(self):
         table, enc, spec, params = _small()
         store = DeepMappingStore.build(table, DeepMappingConfig(), spec=spec, params=params,
@@ -171,6 +186,9 @@ def test_module_scan_covers_this_slices_modules():
     assert {"data/datasets.py", "data/tpcds.py", "baselines/__init__.py",
             "baselines/partitioned.py", "baselines/array_store.py", "baselines/hash_store.py",
             "core/multikey.py"} <= names
+    assert {"fault/retry.py", "fault/health.py", "cluster/__init__.py",
+            "cluster/partitioner.py", "cluster/router.py", "cluster/sharded_store.py",
+            "api/federated.py"} <= names
 
 
 def test_chip_smoke_imports_none_of_the_forbidden_modules():

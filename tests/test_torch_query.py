@@ -10,11 +10,13 @@ cases of ``test_store_protocol.py``, ``test_streaming_executor.py``,
 ``test_aggregate_join.py``, ``test_range_queries.py`` and
 ``test_tpch_queries.py``.
 
-The conformance cases that hold for every store type run on three
-kinds of store pair (``KINDS``): the DeepMapping store, and the AB and
-HB baselines (``ArrayStore``, ``HashStore``; host code in both
-packages), each pair built by both packages from the same table and
-held against each other and the oracle.
+The conformance cases that hold for every store type run on four
+kinds of store pair (``KINDS``): the DeepMapping store; a three-shard
+range cluster built and saved by the reference and opened by the port
+(``cluster_pair``); and the AB and HB baselines (``ArrayStore``,
+``HashStore``; host code in both packages), each baseline pair built by
+both packages from the same table.  Each pair is held against itself
+across the packages and against the oracle.
 
 The port's store serves through the fused tier (``use_kernels=True``),
 which on the CPU runs K1's plain version: a ``where`` conjunction ships
@@ -30,6 +32,7 @@ import pytest
 import torch
 from tpch_reference import assert_aggregate_equal, ref_group_aggregate, ref_join_mask
 
+import repro
 import repro_torch
 from repro_torch.api import (
     CONFORMANCE_METHODS,
@@ -48,16 +51,18 @@ from repro.baselines import ArrayStore as JArrayStore
 from repro.baselines import HashStore as JHashStore
 from repro.core import Table as JTable
 from repro_torch.baselines import ArrayStore, HashStore
+from repro_torch.cluster import ClusterConfig, ShardedDeepMappingStore
 from repro_torch.core import DeepMappingConfig, DeepMappingStore, Table
+from repro_torch.core.trainer import TrainConfig
 from repro_torch.data.tpch import lineitem_like, orders_like
-from torch_port_util import store_pair
+from torch_port_util import cluster_pair, store_pair
 
 SHARED, PRIVATE = (32,), (8,)
 SPECS = ("count", ("sum", "c"), ("min", "c"), ("max", "a"))
 REF_SPECS = (("count", None), ("sum", "c"), ("min", "c"), ("max", "a"))
 #: The store kinds the conformance cases run on; each marked case takes
 #: them through its ``pair`` / ``mutated`` fixture, or a ``kind`` argument.
-KINDS = ("deepmapping", "array", "hash")
+KINDS = ("deepmapping", "sharded", "array", "hash")
 ALL_KINDS = pytest.mark.parametrize("pair", KINDS, indirect=True)
 ALL_KINDS_MUTATED = pytest.mark.parametrize("mutated", KINDS, indirect=True)
 ALL_KINDS_ARG = pytest.mark.parametrize("kind", KINDS)
@@ -130,13 +135,17 @@ def both(pair, build, right=None):
     return got
 
 
-def kind_pair(kind, table, shared=SHARED, private=PRIVATE, epochs=8):
+def kind_pair(kind, table, shared=SHARED, private=PRIVATE, epochs=8, tmp=None):
     """``(reference store, port store)`` of one kind over ``table``: a
-    DeepMapping pair from the same weights (``store_pair``), or the same
-    baseline built by both packages with the reference suites' settings."""
+    DeepMapping pair from the same weights (``store_pair``), a reference
+    cluster saved under the directory ``tmp`` and opened by the port, or
+    the same baseline built by both packages with the reference suites'
+    settings."""
     if kind == "deepmapping":
         return store_pair(table, shared, private, epochs=epochs)[:2]
     jtable = JTable(keys=table.keys.copy(), columns={c: v.copy() for c, v in table.columns.items()})
+    if kind == "sharded":
+        return cluster_pair(jtable, tmp / "cluster", shared, private, epochs=epochs)
     if kind == "array":
         return (JArrayStore.build(jtable, codec="zstd", partition_bytes=4096),
                 ArrayStore.build(table, codec="zstd", partition_bytes=4096))
@@ -147,8 +156,9 @@ def kind_pair(kind, table, shared=SHARED, private=PRIVATE, epochs=8):
 
 
 def is_model(pair):
-    """True for a DeepMapping pair (a model answers; baselines have none)."""
-    return isinstance(pair[1], DeepMappingStore)
+    """True for a DeepMapping store or cluster (a model answers;
+    baselines have none)."""
+    return isinstance(pair[1], (DeepMappingStore, ShardedDeepMappingStore))
 
 
 @pytest.fixture(scope="module")
@@ -157,15 +167,17 @@ def table():
 
 
 @pytest.fixture(scope="module")
-def pair(request, table):
+def pair(request, table, tmp_path_factory):
     """The DeepMapping pair, or the kind a case is parametrized with."""
-    return kind_pair(getattr(request, "param", "deepmapping"), table)
+    return kind_pair(getattr(request, "param", "deepmapping"), table,
+                     tmp=tmp_path_factory.mktemp("pair"))
 
 
 @pytest.fixture(scope="module")
-def mutated(request):
+def mutated(request, tmp_path_factory):
     table = make_table(n=400)
-    p = kind_pair(getattr(request, "param", "deepmapping"), table)
+    p = kind_pair(getattr(request, "param", "deepmapping"), table,
+                  tmp=tmp_path_factory.mktemp("mutated"))
     for s in p:
         mutate(s, table, NEW_KEYS)
     return table, p
@@ -289,15 +301,22 @@ class TestZeroLengthBatches:
         assert keys.shape == (0,)
 
     @ALL_KINDS_ARG
-    def test_mutations_empty(self, kind):
+    def test_mutations_empty(self, kind, tmp_path):
         table = make_table(n=200)
-        store = kind_pair(kind, table, (16,), (4,), epochs=1)[1]
+        pair = kind_pair(kind, table, (16,), (4,), epochs=1, tmp=tmp_path)
         empty = np.zeros(0, dtype=np.int64)
         no_cols = {c: np.zeros(0, dtype=np.int32) for c in table.columns}
-        store.insert(empty, no_cols)
-        store.delete(empty)
-        store.update(empty, no_cols)
-        assert store.num_rows == table.num_rows and store.mutation_version() == 0
+        for s in pair:
+            s.insert(empty, no_cols)
+            s.delete(empty)
+            s.update(empty, no_cols)
+        store = pair[1]
+        assert store.num_rows == table.num_rows
+        # The cluster's facade counts every mutation call, as the
+        # reference's does; a single store counts only real changes.
+        assert store.mutation_version() == pair[0].mutation_version()
+        if kind != "sharded":
+            assert store.mutation_version() == 0
 
 
 class TestMutationValidation:
@@ -374,6 +393,27 @@ class TestEntrypoints:
                                   store.query().where_keys(q).execute())
         built.save(str(tmp_path / "b"))
         assert isinstance(repro_torch.open(str(tmp_path / "b"), device="cpu"), DeepMappingStore)
+
+    def test_build_and_open_a_cluster(self, table, tmp_path):
+        cfg = DeepMappingConfig(shared=(16,), private=(4,), train=TrainConfig(epochs=2))
+        cluster = repro_torch.build(table, cfg, cluster=ClusterConfig(num_shards=2),
+                                    device="cpu")
+        assert isinstance(cluster, ShardedDeepMappingStore) and cluster.num_shards == 2
+        q = query_keys(table)
+        values, exists = cluster.lookup(q)
+        assert exists.sum() == np.isin(q, table.keys).sum()
+        for c in table.columns:
+            np.testing.assert_array_equal(values[c][exists], np.asarray(
+                table.columns[c])[np.searchsorted(table.keys, q[exists])])
+        cluster.save(str(tmp_path / "c"))
+        opened = repro_torch.open(str(tmp_path / "c"), device="cpu")
+        assert isinstance(opened, ShardedDeepMappingStore)
+        assert_result_bytes_equal(opened.query().where_keys(q).execute(),
+                                  cluster.query().where_keys(q).execute())
+        # The reference opens the port's save and answers alike.
+        assert_result_bytes_equal(opened.query().where_keys(q).execute(),
+                                  repro.open(str(tmp_path / "c")).query().where_keys(q)
+                                  .execute())
 
     def test_timings_and_operators(self, pair, table):
         res = pair[1].query().where_keys(table.keys[:64]).execute()
@@ -849,9 +889,9 @@ class TestAggregateDifferential:
         assert any(op.name == "aggregate" for op in res.explain.operators)
 
     @ALL_KINDS_ARG
-    def test_aggregate_after_mutations(self, kind):
+    def test_aggregate_after_mutations(self, kind, tmp_path):
         table = make_table(n=400)
-        p = kind_pair(kind, table, (16,), (4,), epochs=2)
+        p = kind_pair(kind, table, (16,), (4,), epochs=2, tmp=tmp_path)
         for s in p:
             mutate(s, table, NEW_KEYS)
         model = {int(k): {c: int(table.columns[c][i]) for c in table.columns}

@@ -398,12 +398,16 @@ class TestAtomicSaveHygiene:
 
 
 class TestOpenFormats:
-    def test_unported_formats_name_their_item(self, tmp_path):
+    def test_empty_formats_are_refused_as_the_reference_refuses_them(self, tmp_path):
+        # Clusters are ported: an empty manifest is a truncated msgpack
+        # blob, refused with ValueError by both packages.
         cluster = tmp_path / "cluster"
         cluster.mkdir()
         (cluster / "manifest.msgpack").write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="M8"):
+        with pytest.raises(ValueError, match="truncated"):
             repro_torch.open(str(cluster), device="cpu")
+        with pytest.raises(ValueError):
+            repro.open(str(cluster))
         # Baselines are ported: an empty file is an unrecognized baseline
         # blob, refused as the reference refuses it.
         blob = tmp_path / "baseline.msgpack"

@@ -136,3 +136,27 @@ def assert_values_equal(got, want, exists=None):
             g, w = g[exists], w[exists]
         assert g.dtype == w.dtype, (c, g.dtype, w.dtype)
         assert g.tobytes() == w.tobytes(), c
+
+
+def cluster_pair(table, path, shared=(64,), private=(16,), epochs=15, num_shards=3,
+                 policy="range"):
+    """A cluster built and saved by the reference, and the port's copy
+    opened from that save on the CPU (each package's T_aux is the one
+    the reference found; two trained builds would give two models).
+    ``path`` is where the reference saves it.  Returns ``(reference
+    cluster, port cluster)``."""
+    import repro_torch
+    from repro.cluster import ClusterConfig as JClusterConfig
+    from repro.cluster import ShardedDeepMappingStore as JSharded
+    from repro.core import DeepMappingConfig as JConfig
+    from repro.core import Table as JTable
+    from repro.core.trainer import TrainConfig
+
+    jtable = JTable(keys=table.keys.copy(),
+                    columns={c: v.copy() for c, v in table.columns.items()})
+    jcluster = JSharded.build(
+        jtable, JConfig(shared=tuple(shared), private=tuple(private),
+                        train=TrainConfig(epochs=epochs, batch_size=512)),
+        JClusterConfig(num_shards=num_shards, policy=policy))
+    jcluster.save(str(path))
+    return jcluster, repro_torch.open(str(path), device="cpu")
