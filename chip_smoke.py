@@ -74,7 +74,29 @@ on them against its plain PyTorch version on the card:
                 ``aux.msgpack`` refused, then quarantined with the healthy
                 shards serving.  Every plan without an injected fault
                 retries nothing;
-10. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
+10. serve     — the batched ``LookupServer`` over the train phase's
+                store and the cluster (after its mutations): 2,048
+                requests of 1 to 4,096 keys (log-uniform), Zipf-skewed
+                (s = 1.1) over the present keys with 5% absent and 1%
+                out-of-capacity keys, in ``lookup_many`` calls of 32 with
+                ``max_batch`` 65,536, and one call of 163,840 unique keys
+                (three morsels); lossless, byte for byte each store's own
+                ``lookup`` and, on present unmutated keys, the cluster's
+                answers the single store's; one batch per morsel and K1
+                at least once per batch; on the cluster under
+                ``on_error="partial"`` no retried or degraded morsel and
+                every present key found, then with shard 1 failing every
+                collect its keys absent, the healthy shards' byte for
+                byte and the fault counters moved by what was injected;
+                keys/s, the ``ServeStats`` split, request latency p50 and
+                p99 and plan-cache outcomes per store.  Then the launcher
+                (``repro_torch.launch.serve.main``) twice in-process: it
+                builds its DM-R ``customer_demographics`` store (120,000
+                rows) on the card, saves it and serves 100 requests, then
+                reopens the save and serves again; every request found,
+                the store lossless.  The path's launches are read before
+                the checks that look keys up outside the servers;
+11. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
                 rows under the reference benchmark's DM-R config,
                 trained on the card through ``repro_torch.build``: every
                 key lossless, absent and out-of-capacity keys absent; the
@@ -85,7 +107,7 @@ on them against its plain PyTorch version on the card:
                 through ``repro_torch.open`` with the same answers; K1
                 (with and without predicate tables) and K2 on the store's
                 model and residue features against their plain versions;
-11. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
+12. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
                 under DM-R (20 epochs, cut for time), with two key
                 choices: (key, credit rating),
                 whose packed domain fits int32 (K1), and (key, purchase
@@ -93,7 +115,7 @@ on them against its plain PyTorch version on the card:
                 lossless on every row, unknown combinations absent; each
                 choice's kernel on its store's model against its plain
                 version;
-12. baselines — every AB/HB factory of the paper (§V-A3) on
+13. baselines — every AB/HB factory of the paper (§V-A3) on
                 ``customer_demographics`` (HBC-L on its first 960,400
                 rows, cut for time) and on SF1 ``orders``: exact on
                 100,000 present and 50,000 absent keys, saved, reopened
@@ -103,22 +125,22 @@ on them against its plain PyTorch version on the card:
                 stores probed the same way.  Baselines are host code:
                 they build in a pool of spawned workers (never forked
                 from the process that holds the CUDA context), one per
-                core but two, started before phase 10 and running beside
-                phases 10 and 11; a hash store's reopened lookup is timed
+                core but two, started before phase 11 and running beside
+                phases 11 and 12; a hash store's reopened lookup is timed
                 in its worker, an array store's in the main process once
                 at most one worker is left (and again alone if one was);
-13. times     — kernel and plain-version times with CUDA events, the
+14. times     — kernel and plain-version times with CUDA events, the
                 kernels' bounds, K1/K2 under each plan of the store's
                 model, one fp32 ``torch.matmul`` of the trunk's 256x256
                 layer as a yardstick, registers and spills per
                 instantiation, and whole-table lookup throughput.
 
 Each kernel's launches are counted on every path that drives the port
-(phases 3 to 12), with the counts set to 0 just before each path and read
+(phases 3 to 13), with the counts set to 0 just before each path and read
 just after; K1's launches that carried predicate tables are counted
 apart.  The launches made to compare a kernel with its plain version
-(phase 2, and in phases 10 and 11 after their counts are read) and those
-of phase 13 do not count.
+(phase 2, and in phases 11 and 12 after their counts are read) and those
+of phase 14 do not count.
 Each phase prints one JSON line with its seconds (``phase_s``); any
 failed check raises (non-zero exit).  The last lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -192,6 +214,19 @@ PROBE_PRESENT, PROBE_ABSENT = 100_000, 50_000
 #: (its LZMA partitions took 128.85 s over all 1,920,800 rows): a prefix,
 #: cut for the smoke's time budget.
 HBCL_CD_ROWS = 960_400
+#: Serve phase traffic: requests, their largest size (sizes log-uniform
+#: from 1), requests per ``lookup_many`` call, the server's
+#: ``max_batch``, the Zipf exponent of the present keys, and the shares of
+#: keys absent inside the key range and at or past the store's capacity.
+SERVE_REQUESTS, SERVE_MAX_KEYS, SERVE_CALL = 2048, 4096, 32
+SERVE_MAX_BATCH = 65_536
+SERVE_ZIPF, SERVE_ABSENT, SERVE_OUT_CAP = 1.1, 0.05, 0.01
+#: Requests of SERVE_MAX_KEYS distinct keys in the one call that streams
+#: three morsels (163,840 unique keys), and the calls served again with
+#: a cluster shard dead.
+SERVE_BIG_CALL, SERVE_FAULT_CALLS = 40, 4
+#: Requests of the launcher's runs (of 1,000 keys each, its default).
+LAUNCH_REQUESTS = 100
 
 RECORD: dict = {}
 #: perf_counter at the end of the previous phase (the script's start for
@@ -493,6 +528,294 @@ BASELINE_JOBS = tuple(
     ("customer_demographics_prefix" if (t, f) == ("customer_demographics", "HBC-L") else t, f)
     for f in ("HBC-L", "HB", "HBC-Z", "ABC-L", "ABC-G", "ABC-D", "ABC-Z", "AB")
     for t in ("customer_demographics", "orders"))
+
+
+# ------------------------------------------------------------ serve phase
+def serve_traffic(rng, present, max_key: int, cap: int):
+    """The serve phase's request stream: SERVE_REQUESTS requests, sizes
+    log-uniform over 1 to SERVE_MAX_KEYS keys; each key Zipf-skewed
+    (exponent SERVE_ZIPF, ranks over a random order of ``present``), or
+    with the shares SERVE_ABSENT and SERVE_OUT_CAP a key absent inside
+    ``[0, max_key]`` or one at or past ``cap``.  Returns the requests in
+    ``lookup_many`` calls of SERVE_CALL requests each."""
+    import numpy as np
+
+    sizes = np.exp(rng.uniform(0.0, np.log(SERVE_MAX_KEYS + 1), SERVE_REQUESTS))
+    sizes = np.clip(sizes.astype(np.int64), 1, SERVE_MAX_KEYS)
+    total = int(sizes.sum())
+    p = np.arange(1, present.size + 1, dtype=np.float64) ** -SERVE_ZIPF
+    keys = rng.permutation(present)[rng.choice(present.size, total, p=p / p.sum())]
+    u = rng.random(total)
+    slots = np.flatnonzero(u < SERVE_ABSENT)
+    cand = rng.integers(0, max_key + 1, 4 * slots.size + 64)
+    cand = cand[~np.isin(cand, present)]
+    check(cand.size >= slots.size, "serve: not enough absent keys")
+    keys[slots] = cand[: slots.size]
+    slots = np.flatnonzero(u > 1.0 - SERVE_OUT_CAP)
+    keys[slots] = rng.integers(cap, 2**40, slots.size)
+    reqs = np.split(keys, np.cumsum(sizes)[:-1])
+    return [reqs[i:i + SERVE_CALL] for i in range(0, len(reqs), SERVE_CALL)]
+
+
+def serve_calls(server, calls, read_launches):
+    """Every call through ``server.lookup_many``; returns the answers per
+    call, each call's wall seconds, and K1's launches in the calls."""
+    import torch
+
+    before = read_launches()["fused_lookup"]
+    answers, walls = [], []
+    for call in calls:
+        t0 = time.perf_counter()
+        answers.append(server.lookup_many(call))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return answers, walls, read_launches()["fused_lookup"] - before
+
+
+def joined(answers):
+    """One call's answers end to end: ``(values, exists)``."""
+    import numpy as np
+
+    return ({c: np.concatenate([v[c] for v, _ in answers]) for c in answers[0][0]},
+            np.concatenate([e for _, e in answers]))
+
+
+def same_answers(label: str, got, want, rows=slice(None)) -> None:
+    """Two ``(values, exists)`` answers equal in dtype and bytes on
+    ``rows``, with the same columns."""
+    import numpy as np
+
+    check(np.array_equal(got[1][rows], want[1][rows]), f"{label}: existence differs")
+    check(set(got[0]) == set(want[0]), f"{label}: the columns differ")
+    for c in want[0]:
+        g, w = got[0][c][rows], want[0][c][rows]
+        check(g.dtype == w.dtype and g.tobytes() == w.tobytes(), f"{label}: column {c} differs")
+
+
+def same_rows_widened(label: str, got, want, rows) -> list:
+    """``same_answers`` on ``rows``, except that an integer column may come
+    back wider in ``got``: a cluster shard whose codec took an unseen
+    value decodes it as int64 (``ColumnCodec.extend`` concatenates Python
+    ints, in the reference as in the port); such a column must be equal
+    in value.  Returns the widened columns."""
+    import numpy as np
+
+    widened = [c for c in want[0] if got[0][c].dtype != want[0][c].dtype]
+    for c in widened:
+        g, w = got[0][c], want[0][c]
+        check(g.dtype.kind == w.dtype.kind == "i" and g.dtype.itemsize > w.dtype.itemsize
+              and np.array_equal(g[rows], w[rows]), f"{label}: column {c} differs")
+    same_answers(label, ({c: v for c, v in got[0].items() if c not in widened}, got[1]),
+                 ({c: v for c, v in want[0].items() if c not in widened}, want[1]), rows)
+    return widened
+
+
+def serve_summary(server, walls, launches, reg, calls) -> dict:
+    """Keys/s, wall s, the ServeStats split, request latency p50 and p99
+    (exact: each request waits its call's wall, as the server observes
+    it; and as ``deepmap_serve_request_seconds`` estimates them from its
+    log buckets), plan-cache outcomes."""
+    import numpy as np
+
+    s = server.stats
+    lat = reg.histogram("deepmap_serve_request_seconds")
+    waits = np.repeat(walls, [len(c) for c in calls])
+    wall = float(sum(walls))
+    return {"calls": len(calls), "requests": s.requests, "keys": s.keys,
+            "wall_s": wall, "keys_per_s": s.keys / wall,
+            "batches": s.batches, "fused_lookup_launches": launches,
+            **{f: getattr(s, f) for f in ("total_s", "route_s", "infer_s", "exist_s", "aux_s",
+                                          "filter_s", "decode_s", "gather_s")},
+            "request_p50_s": float(np.quantile(waits, 0.5)),
+            "request_p99_s": float(np.quantile(waits, 0.99)),
+            "histogram_p50_s": lat.quantile(0.5), "histogram_p99_s": lat.quantile(0.99),
+            "cache": {"hits": s.cache_hits, "misses": s.cache_misses,
+                      "bypass": s.cache_bypass}}
+
+
+def counter_total(reg, name: str) -> float:
+    """A counter family's sum over its labels (0 before its first use)."""
+    metric = reg.get(name)
+    return 0.0 if metric is None else sum(v for _, v in metric.items())
+
+
+@contextlib.contextmanager
+def own_registry():
+    """A fresh metrics registry as the process default, for one block."""
+    from repro_torch import obs
+
+    reg = obs.MetricsRegistry()
+    prev = obs.set_registry(reg)
+    try:
+        yield reg
+    finally:
+        obs.set_registry(prev)
+
+
+def serve_phase(seed: int, store, table, cluster, cluster_expect, mutated, read_launches,
+                work_dir: Path) -> dict:
+    """The serve phase (see the module docstring): the train phase's
+    single store and the cluster phase's cluster (after its mutations:
+    ``cluster_expect`` is ``(sorted live keys, their columns)``,
+    ``mutated`` the keys updated or deleted there) behind
+    ``LookupServer``, then the launcher twice.  Each server records into
+    a metrics registry of its own.  Returns the phase's record and the
+    checks that look keys up outside the servers (against each store's
+    own lookup, the launcher's stores on every key), to be run once the
+    path's launch counts are read."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Table
+    from repro_torch.fault import DEFAULT_POLICY, FaultPlan, FaultSpec
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import LookupServer
+
+    dev = store.device
+    rng = np.random.default_rng(seed + 22)
+    calls = serve_traffic(rng, table.keys, int(table.max_key), int(store.encoder.capacity))
+    # One more call whose unique keys exceed twice the server's batch,
+    # so that the executor's window streams three morsels.
+    big = rng.choice(table.keys, SERVE_BIG_CALL * SERVE_MAX_KEYS, replace=False)
+    calls.append(np.split(big, SERVE_BIG_CALL))
+    uniq = [np.unique(np.concatenate(call)).size for call in calls]
+    morsels = sum(max(1, -(-u // SERVE_MAX_BATCH)) for u in uniq)
+    check(uniq[-1] > 2 * SERVE_MAX_BATCH, "serve: the merged call does not stream 3 morsels")
+    flat_keys = np.concatenate([k for call in calls for k in call])
+    rec: dict = {"requests": int(sum(len(c) for c in calls)), "keys": int(flat_keys.size),
+                 "unique_keys_per_call": {"min": min(uniq), "max": max(uniq),
+                                          "mean": float(np.mean(uniq))},
+                 "morsels_expected": morsels}
+
+    # The single store: lossless, byte for byte its own lookup, one
+    # batch per morsel, K1 at least once per batch.
+    with own_registry() as reg:
+        server = LookupServer(store, max_batch=SERVE_MAX_BATCH)
+        single, walls, k1 = serve_calls(server, calls, read_launches)
+        rec["single"] = serve_summary(server, walls, k1, reg, calls)
+    check(server.stats.batches == morsels,
+          f"serve: {server.stats.batches} batches, expected {morsels} morsels")
+    check(k1 >= server.stats.batches, f"serve: K1 launched {k1} times for "
+          f"{server.stats.batches} batches")
+    single_flat = joined([a for answers in single for a in answers])
+    check_probe("serve: single store", table, flat_keys, np.isin(flat_keys, table.keys),
+                *single_flat)
+
+    # The cluster, fault-free under on_error="partial": nothing retried
+    # or degraded, and every present key exists, so a failure cannot
+    # pass as an absent key.
+    live_keys, live_cols = cluster_expect
+    check(bool(np.all(np.diff(live_keys) > 0)), "serve: the cluster's live keys are not sorted")
+    with own_registry() as reg:
+        server = LookupServer(cluster, max_batch=SERVE_MAX_BATCH, on_error="partial")
+        clustered, walls, k1 = serve_calls(server, calls, read_launches)
+        rec["cluster"] = serve_summary(server, walls, k1, reg, calls)
+        hidden = {n: counter_total(reg, n) for n in ("deepmap_fault_retries_total",
+                                                      "deepmap_fault_degraded_morsels_total")}
+    check(not any(hidden.values()), f"serve: the fault-free cluster calls retried or "
+          f"degraded: {hidden}")
+    check(server.stats.batches == morsels and k1 >= server.stats.batches,
+          "serve: the cluster's batches or K1 launches are short")
+    cl_flat = joined([a for answers in clustered for a in answers])
+    check_probe("serve: cluster", Table(keys=live_keys, columns=live_cols), flat_keys,
+                np.isin(flat_keys, live_keys), *cl_flat)
+    kept = np.isin(flat_keys, table.keys) & ~np.isin(flat_keys, mutated)
+    widened = same_rows_widened("serve: cluster against the single store", cl_flat,
+                                single_flat, kept)
+    rec["cluster"]["rows_held_against_single"] = int(kept.sum())
+    rec["cluster"]["columns_widened"] = widened
+
+    # One shard dead (every collect of shard 1 raises) under "partial":
+    # the healthy shards' keys byte for byte, shard 1's absent, and the
+    # counters moved by what was injected.
+    dead_calls = calls[:SERVE_FAULT_CALLS]
+    plan = FaultPlan([FaultSpec(site="shard_collect", owner="shard:1", kind="raise")])
+    with own_registry() as reg, plan.activate():
+        server = LookupServer(cluster, max_batch=SERVE_MAX_BATCH, on_error="partial")
+        dead, _, _ = serve_calls(server, dead_calls, read_launches)
+        moved = {n: counter_total(reg, n) for n in (
+            "deepmap_fault_injected_total", "deepmap_fault_retries_total",
+            "deepmap_fault_degraded_morsels_total")}
+    dead_keys = np.concatenate([k for call in dead_calls for k in call])
+    dead_flat = joined([a for answers in dead for a in answers])
+    healthy = cluster.partitioner.shard_of(dead_keys) != 1
+    same_answers("serve: shard 1 dead, healthy shards", dead_flat,
+                 ({c: v[: dead_keys.size] for c, v in cl_flat[0].items()},
+                  cl_flat[1][: dead_keys.size]), healthy)
+    check(not dead_flat[1][~healthy].any(), "serve: a key of the dead shard reads present")
+    attempts = DEFAULT_POLICY.max_attempts
+    check(plan.fired > 0 and plan.fired % attempts == 0
+          and moved["deepmap_fault_injected_total"] == plan.fired
+          and moved["deepmap_fault_retries_total"] == plan.fired // attempts * (attempts - 1)
+          and moved["deepmap_fault_degraded_morsels_total"] == 0,
+          f"serve: the fault counters moved otherwise than injected: fired {plan.fired}, "
+          f"{moved}")
+    rec["shard_dead"] = {"calls": len(dead_calls), "keys": int(dead_keys.size),
+                         "dead_shard_keys": int((~healthy).sum()), "fired": plan.fired,
+                         **moved}
+
+    # The launcher, twice in-process: it builds the DM-R store of its
+    # registry's customer_demographics (120,000 rows) on the card, saves
+    # it and serves; then it reopens the save and serves again.
+    argv = ["--dataset", "tpcds_customer_demographics", "--variant", "DM-R",
+            "--requests", str(LAUNCH_REQUESTS), "--store-dir", str(work_dir / "launcher")]
+    launch_table = launcher.DATASETS["tpcds_customer_demographics"]()
+    runs, launch_stores = [], []
+    for run in ("build", "reopen"):
+        before = read_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            srv = launcher.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = read_launches()
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        found = re.search(r"all-found=(\d+)/(\d+);", text)
+        check(found is not None and found.group(1) == found.group(2) == str(LAUNCH_REQUESTS),
+              f"serve: the launcher's {run} run did not find every request")
+        check(("loaded store from" in text) == (run == "reopen"),
+              f"serve: the launcher's {run} run took the other path")
+        check(srv.store.device.type == dev.type and srv.store.encoder.residues,
+              f"serve: the launcher's {run} store is off the card or has no residues")
+        launches = {k: after[k] - before[k] for k in after}
+        check(launches["fused_lookup"] > 0 and (run == "reopen" or launches["fused_mlp"] > 0),
+              f"serve: the launcher's {run} run did not launch K1 (and K2 to build)")
+        launch_stores.append(srv.store)
+        s = srv.stats
+        runs.append({"run": run, "seconds": secs, "rows": launch_table.num_rows,
+                     "residues": list(srv.store.encoder.residues),
+                     "memorized_fraction": srv.store.memorized_fraction(),
+                     "compression_ratio": srv.store.compression_ratio(),
+                     "aux_rows": srv.store.aux.num_rows, "requests": s.requests,
+                     "keys": s.keys, "wall_s": s.total_s, "keys_per_s": s.qps(),
+                     **{f: getattr(s, f) for f in ("infer_s", "exist_s", "aux_s",
+                                                   "decode_s")},
+                     "launches": launches, "summary": text.strip().splitlines()[-2:]})
+    rec["launcher"] = runs
+
+    def lookups_outside_the_servers():
+        """Each server's answers, all calls end to end, byte for byte its
+        store's own lookup of the same keys; the launcher's stores
+        lossless on every key and equal to each other."""
+        same_answers("serve: single store against store.lookup", single_flat,
+                     store.lookup(flat_keys))
+        same_answers("serve: cluster against cluster.lookup", cl_flat,
+                     cluster.lookup(flat_keys))
+        answers = []
+        for run, st in zip(("build", "reopen"), launch_stores):
+            answers.append(st.lookup(launch_table.keys))
+            check(bool(answers[-1][1].all()), f"serve: the launcher's {run} store lost a key")
+            for c, col in launch_table.columns.items():
+                check(np.array_equal(answers[-1][0][c], col),
+                      f"serve: the launcher's {run} store: column {c} is not lossless")
+        same_answers("serve: the launcher's reopened store against its built one",
+                     answers[1], answers[0])
+
+    return rec, lookups_outside_the_servers
 
 
 def main() -> int:
@@ -1441,8 +1764,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     # quarantined shard; injected shard and member faults.  Every plan
     # without an injected fault retries nothing.
     def retries_total():
-        metric = obs.registry().get("deepmap_fault_retries_total")
-        return 0.0 if metric is None else sum(v for _, v in metric.items())
+        return counter_total(obs.registry(), "deepmap_fault_retries_total")
 
     def no_retries(name, ex):
         check(ex.retries == 0 and ex.owners_failed == (),
@@ -1454,13 +1776,6 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
                                                "decode_s", "gather_s", "total_s")},
                 "shards_visited": ex.shards_visited, "morsels": ex.morsels,
                 "stages": list(ex.plan)}
-
-    def same_answers(name, a, b, rows=slice(None)):
-        check(np.array_equal(a[1][rows], b[1][rows]), f"cluster: {name}: existence differs")
-        for c in b[0]:
-            x, y = a[0][c][rows], b[0][c][rows]
-            check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
-                  f"cluster: {name}: column {c} differs")
 
     cl_config = ClusterConfig()
     check(cl_config.num_shards == 4 and cl_config.policy == "range",
@@ -1540,12 +1855,12 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     fan_s = time.perf_counter() - t0
     after = read_launches()
     check(fan.keys.tobytes() == cl_probe.tobytes(), "cluster: the plan's keys differ")
-    same_answers("fan-out against serial", (fan.values, fan.exists), (ser_v, ser_e))
+    same_answers("cluster: fan-out against serial", (fan.values, fan.exists), (ser_v, ser_e))
     check(bool(ser_e[:n_tr].all()) and not ser_e[n_tr:].any(),
           "cluster: a present key reads absent, or an absent one present")
     for c, col in train_table.columns.items():
         check(np.array_equal(ser_v[c][:n_tr], col), f"cluster: column {c} is not lossless")
-    same_answers("against the single store", (ser_v, ser_e), single, slice(0, n_tr))
+    same_answers("cluster: against the single store", (ser_v, ser_e), single, slice(0, n_tr))
     check(np.array_equal(ser_e, single[1]), "cluster: existence differs from the single store")
     check(ser_st.shards_visited == 4 and fan.explain.shards_visited == 4,
           "cluster: a lookup did not visit all 4 shards")
@@ -1637,7 +1952,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
         check(type(reopened) is type(cluster) and reopened.num_shards == 4
               and all(s.device.type == "cuda" for s in reopened.shards),
               "cluster: reopened as another kind, or off the card")
-        same_answers("after the reopen", reopened.lookup(live_probe), live_want)
+        same_answers("cluster: after the reopen", reopened.lookup(live_probe), live_want)
         del reopened
         check(retries_total() == retries_0, "cluster: a fault-free path retried")
 
@@ -1698,7 +2013,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
                                     times=1)])
         with once.activate():
             ores = cluster.query().where_keys(live_probe).execute()
-        same_answers("after one retried shard fault", (ores.values, ores.exists), live_want)
+        same_answers("cluster: after one retried shard fault", (ores.values, ores.exists), live_want)
         check(once.fired == 1 and ores.explain.retries == 1 and ores.explain.owners_failed == (),
               "cluster: a shard fault was not recovered by exactly one retry")
         dead = FaultPlan([FaultSpec(site="shard_collect", owner="shard:0", kind="raise")])
@@ -1734,7 +2049,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
               "cluster: shard 1 was not quarantined")
         qres = q.query().where_keys(live_probe).on_error("partial").execute()
         healthy = q.partitioner.shard_of(live_probe) != 1
-        same_answers("quarantined, healthy shards", (qres.values, qres.exists), live_want,
+        same_answers("cluster: quarantined, healthy shards", (qres.values, qres.exists), live_want,
                      healthy)
         check(not qres.exists[~healthy].any()
               and qres.explain.keys_unresolved == int((~healthy).sum())
@@ -1783,10 +2098,32 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          stats={k: getattr(cl_st, k) for k in ("dispatches", "fused_calls", "pallas_calls",
                                                "fused_streamed_calls", "jit_calls")},
          launches=cl_launches)
-    cluster.close()
-    del cluster, rep, part, ab, rres, pres, fres, ores, qres, live_want
+    del rep, part, ab, rres, pres, fres, ores, qres, live_want
 
-    # The baseline pool (phase 12's stores) starts here, beside the
+    # --------------------------------------------------------- 10. serve
+    # The batched LookupServer over the train phase's single store and
+    # the cluster (as the cluster phase left it), then the launcher; host
+    # times here are taken before the baseline pool starts.
+    reset_launches()
+    serve_dir = ROOT / "build" / f"chip_smoke_serve_{os.getpid()}"
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    serve_dir.mkdir(parents=True)
+    try:
+        serve_rec, serve_checks = serve_phase(
+            args.seed, tstore, train_table, cluster, (live_keys, live_cols),
+            np.concatenate([train_table.keys[cl_upd], train_table.keys[cl_del]]),
+            read_launches, serve_dir)
+        serve_launches = paths["serve"] = read_launches()
+        serve_checks()
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    check(serve_launches["fused_lookup"] > 0 and serve_launches["fused_mlp"] > 0,
+          "serve: K1 or K2 was not launched")
+    emit("serve", **serve_rec, launches=serve_launches)
+    cluster.close()
+    del cluster
+
+    # The baseline pool (phase 13's stores) starts here, beside the
     # correlated and multikey phases, on all cores but two: a training
     # step there is launch-bound on one core.  Spawned workers, never
     # forked from this process, which holds a CUDA context.
@@ -1801,7 +2138,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     bl_jobs = [bl_pool.apply_async(baseline_job, (t, f, args.seed, str(bl_dir)))
                for t, f in BASELINE_JOBS]
 
-    # --------------------------------------------------- 10. correlated
+    # --------------------------------------------------- 11. correlated
     # TPC-DS customer_demographics at its full 1,920,800 rows (every
     # column a periodic function of the key) under the reference
     # benchmark's DM-R config, built with repro_torch.build on the card:
@@ -1937,7 +2274,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          build_launches=cd_build_launches, launches=cd_launches,
          kernels_vs_plain=cd_kernels)
 
-    # ------------------------------------------------------ 11. multikey
+    # ------------------------------------------------------ 12. multikey
     # MultiKeyMapping over a customer_demographics prefix under DM-R, two
     # key choices: (key, credit rating) packs into int32 and serves
     # through K1; (key, purchase estimate) packs past int32 (raw integers
@@ -2016,10 +2353,10 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          build_launches=mk_build_launches, size_bytes=mk.size_bytes(), launches=mk_launches)
     del mk
 
-    # ----------------------------------------------------- 12. baselines
+    # ----------------------------------------------------- 13. baselines
     # Every AB/HB factory on customer_demographics and on SF1 orders,
     # built, checked, saved, bit-flipped and reopened by the pool started
-    # before phase 10; the hash stores' reopened lookups are timed in
+    # before phase 11; the hash stores' reopened lookups are timed in
     # their workers (about 15,000-40,000 keys/s, a core's work either
     # way).  Each array store's saved file is reopened here through
     # repro_torch.open and its lookup timed as the DeepMapping stores'
@@ -2107,7 +2444,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          deepmapping=dm_rows, launches=paths["baselines"])
     del cd_store
 
-    # -------------------------------------------------------- 13. times
+    # -------------------------------------------------------- 14. times
     n = 65536
     kp = rng.choice(table.keys, n).astype(np.int32)
     kt = torch.from_numpy(kp).to(dev)

@@ -15,6 +15,11 @@ fused lookup and fused MLP kernels are hand-written CUDA
                                          sharded cluster with
                                          ``cluster=ClusterConfig(...)``.
 - ``store.query()...execute()``        — the plan-based query layer.
+- ``repro_torch.serve.LookupServer``   — the batched lookup server over
+                                         any store, cluster or
+                                         federation.
+- ``python -m repro_torch.launch.serve`` — build or load a store and
+                                         serve synthetic requests.
 """
 
 from repro_torch.api.entry import build, open  # noqa: F401,A004

@@ -6,7 +6,9 @@ the plan-based streaming query layer, cross-store federation, and the
 Store implementations (``repro_torch.core``, ``repro_torch.cluster``,
 ``repro_torch.baselines``) subclass
 :class:`MappingStore`; this package never imports them at module level
-(they import us), so the dependency direction stays acyclic.
+(they import us), so the dependency direction stays acyclic:
+``api <- stores <- serve`` (``repro_torch.serve.LookupServer`` streams
+its merged requests through this package's executor).
 """
 
 from repro_torch.api.cache import PlanCache, plan_fingerprint  # noqa: F401

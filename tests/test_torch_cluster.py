@@ -12,11 +12,10 @@ against the reference's ``repro.cluster``.
 * The port's own threaded build (one trainer per shard in a thread
   pool) is lossless on every key.
 * The single-vs-cluster equivalence, modification equivalence,
-  per-shard retrain, shared ``MemoryPool``, serialization and
-  build-validation cases of ``tests/test_cluster.py``, on the port.
-  ``TestServeIntegration`` there drives ``repro.serve.LookupServer``,
-  which the port gets with ROADMAP item M9; it has no counterpart here
-  yet.
+  per-shard retrain, shared ``MemoryPool``, serialization,
+  build-validation and serving (``TestServeIntegration``, over a
+  cluster the reference saved, beside the reference's server) cases of
+  ``tests/test_cluster.py``, on the port.
 * The kernel wrappers' launch counter and build lock under threads.
 """
 
@@ -52,6 +51,7 @@ from repro_torch.cluster import partitioner as tpartitioner
 from repro_torch.core import DeepMappingConfig, DeepMappingStore, Table
 from repro_torch.core.trainer import TrainConfig
 from repro_torch.kernels import build
+from repro_torch.serve import LookupServer
 from repro_torch.storage import MemoryPool
 from torch_port_util import assert_values_equal, cluster_pair
 
@@ -511,6 +511,28 @@ class TestSharedMemoryPool:
             np.testing.assert_array_equal(vals["col0"], table.columns["col0"])
         assert pool.evictions > 0            # pressure actually happened
         assert pool.used_bytes <= pool.budget_bytes
+
+
+class TestServeIntegration:
+    def test_lookup_server_over_sharded_store(self, tmp_path):
+        """The reference's case over a 4-range-shard cluster that the
+        reference built and saved, served by both packages' servers."""
+        from repro.serve import LookupServer as JServer
+
+        table = make_periodic_table(n=1200)
+        jcluster, cluster = cluster_pair(table, tmp_path / "c", num_shards=4)
+        srv, jsrv = LookupServer(cluster, max_batch=256), JServer(jcluster, max_batch=256)
+        rng = np.random.default_rng(0)
+        reqs = [rng.choice(table.keys, size=s) for s in (31, 200, 7)]
+        results = srv.lookup_many(reqs)
+        lut = dict(zip(table.keys.tolist(), table.columns["col0"].tolist()))
+        for req, (vals, exists), (jvals, jexists) in zip(reqs, results, jsrv.lookup_many(reqs)):
+            assert exists.all()
+            assert [lut[k] for k in req.tolist()] == vals["col0"].tolist()
+            assert exists.tobytes() == jexists.tobytes()
+            assert_values_equal(vals, jvals)
+        assert srv.stats.qps() > 0
+        assert (srv.stats.batches, srv.stats.keys) == (jsrv.stats.batches, jsrv.stats.keys)
 
 
 class TestBuildValidation:

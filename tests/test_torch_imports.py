@@ -1,8 +1,9 @@
 """Import hygiene and device defaults of the port.
 
-* ``repro_torch`` imports with ``jax``, ``msgpack`` and ``zstandard``
-  blocked, and no module under ``src/repro_torch`` imports ``jax``,
-  anything of ``repro``, or ``msgpack``; ``zstandard`` appears only as
+* ``repro_torch`` imports with ``jax``, ``msgpack``, ``zstandard`` and
+  ``benchmarks`` blocked, and no module under ``src/repro_torch``
+  imports ``jax``, anything of ``repro`` or ``benchmarks``, or
+  ``msgpack``; ``zstandard`` appears only as
   the optional import of ``storage/codecs.py`` (zlib stands in without
   it);
 * entry points default to CUDA and raise when none is present (no CPU
@@ -61,7 +62,8 @@ def test_module_imports_neither_jax_nor_repro(path):
     optional = set(_optional_imports(path))
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro", "msgpack"), f"{path.name} imports {name}"
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks", "msgpack"), (
+            f"{path.name} imports {name}")
         if top == "zstandard":
             assert path.relative_to(PKG) == Path("storage/codecs.py") and name in optional, (
                 f"{path.name} imports zstandard")
@@ -74,12 +76,13 @@ def test_import_with_jax_blocked():
     ]
     code = (
         "import sys\n"
-        "for m in ('jax', 'msgpack', 'zstandard'):\n"
+        "for m in ('jax', 'msgpack', 'zstandard', 'benchmarks'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, repro_torch\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'repro' or m.startswith(('repro.', 'jax.'))]\n"
+        "bad = [m for m, mod in list(sys.modules.items())\n"
+        "       if mod is not None and m.split('.')[0] in ('repro', 'jax', 'benchmarks')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -189,8 +192,11 @@ def test_module_scan_covers_this_slices_modules():
     assert {"fault/retry.py", "fault/health.py", "cluster/__init__.py",
             "cluster/partitioner.py", "cluster/router.py", "cluster/sharded_store.py",
             "api/federated.py"} <= names
+    assert {"serve/__init__.py", "serve/engine.py", "launch/__init__.py",
+            "launch/serve.py"} <= names
 
 
 def test_chip_smoke_imports_none_of_the_forbidden_modules():
     for name in _imports(ROOT / "chip_smoke.py"):
-        assert name.split(".")[0] not in ("jax", "jaxlib", "repro", "msgpack", "zstandard"), name
+        assert name.split(".")[0] not in (
+            "jax", "jaxlib", "repro", "benchmarks", "msgpack", "zstandard"), name
