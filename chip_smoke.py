@@ -19,11 +19,16 @@ on them against its plain PyTorch version on the card:
                 take each tile shape: K2 codes and logits byte-identical
                 across plans, K1 codes equal to K2's, the default plan
                 against the plain version;
-3. bitvector  — K3 (the existence test) through ``bitvector_test`` over
-                the SF1 store's existence vector, at 1,023 to 65,537 keys
-                with edge keys and on all 1.5 M present keys plus 100,000
-                absent ones, equal to its plain version and to
-                ``BitVector.test`` on every key;
+3. bitvector  — K3 (the existence test) through ``bitvector_test`` on
+                keys as a caller holds them, one launch a call: int64 and
+                int32, contiguous, at offsets of 1 and 3 keys, strided,
+                lengths 1 to 9 and 1,023 to 65,537 with edge keys, and all
+                1.5 M present SF1 keys plus 100,000 absent ones, over the
+                SF1 store's existence vector and over a 10^8-slot vector
+                (12.5 MB of words, about 1.5 M keys set); equal to its
+                plain version and to ``BitVector.test`` on every key; the
+                reference's contract (``bitvector_call``, int32 -> int32)
+                against the plain version on the two largest calls' keys;
 4. main       — a DeepMapping store over TPC-H ``orders`` at SF1 row
                 count (1.5 M rows) with the paper's store config, built
                 from random weights; every key looked up losslessly
@@ -34,7 +39,11 @@ on them against its plain PyTorch version on the card:
 6. train      — the same table built with no weights: the store trains
                 at the paper's width and ``TrainConfig`` (batch 16,384,
                 up to 200 epochs), evaluates T_aux through K2 and answers
-                every key losslessly through K1;
+                every key losslessly through K1; a few training steps
+                and ``bitvector_test`` calls under one ``torch.profiler``
+                session: one CUDA kernel a call on contiguous keys, and
+                the call's split (word upload, kernels, wall; its own
+                JSON line, ``bitvector_profile``);
 7. persist    — the trained store saved by the port in the reference's
                 v2 layout and reopened through ``repro_torch.open``:
                 every SF1 key plus 100,000 absent and 2,000
@@ -130,8 +139,10 @@ on them against its plain PyTorch version on the card:
                 in its worker, an array store's in the main process once
                 at most one worker is left (and again alone if one was);
 14. times     — kernel and plain-version times with CUDA events, the
-                kernels' bounds, K1/K2 under each plan of the store's
-                model, one fp32 ``torch.matmul`` of the trunk's 256x256
+                kernels' bounds, K3's two instantiations at 65,536 keys
+                and at its largest call (one launch, a run of 100, L2
+                flushed) beside the launch floor, K1/K2 under each plan
+                of the store's model, one fp32 ``torch.matmul`` of the trunk's 256x256
                 layer as a yardstick, registers and spills per
                 instantiation, and whole-table lookup throughput.
 
@@ -150,7 +161,8 @@ no result.  A full record goes to ``chiprun_out/chip_smoke.json``.
 ``--models-only`` runs none of that: it builds the kernels of the
 checkout under ``--src`` (this one by default) and prints one JSON line
 of K1/K2 times on the MODELS (the store's heads under wider trunks)
-through the public calls, so that two checkouts can be timed in one
+through the public calls, and of K3's times and ``bitvector_test``'s
+split on the SF1 vector, so that two checkouts can be timed in one
 call; ``--plans`` also times every plan that fits, with the codes
 checked across plans, through private helpers of this checkout's
 package (``fused_mlp._candidate_plans``, ``plan=``).
@@ -188,6 +200,15 @@ MARGIN_TOL = 1e-5
 #: Device spin queued before each timed call: about 2 ms at the H100's
 #: clock, longer than the host needs to enqueue any timed call.
 SPIN_CYCLES = 4_000_000
+#: K3's run of launches timed between one event pair, and the spin queued
+#: ahead of it (about 10 ms, longer than the host needs to enqueue them).
+RUN_LAUNCHES = 100
+RUN_SPIN_CYCLES = 20_000_000
+#: Bytes read between launches to flush the 50 MB L2.
+L2_FLUSH_BYTES = 256 * 2**20
+#: The bitvector phase's second vector: the 10^8-slot domain of the
+#: reference's docstring (12.5 MB of words), with about 1.5 M keys set.
+K3_BIG_SLOTS, K3_BIG_SET = 10**8, 1_500_000
 #: TPC-H ``orders`` rows at scale factor 1.
 ROWS = 1_500_000
 #: The paper's epoch cap (``PAPER_STORE``'s TrainConfig); training may
@@ -283,6 +304,247 @@ def host_ms(fn, reps=50):
         ts.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
     return statistics.median(ts)
+
+
+def run_ms(fn, reps=RUN_LAUNCHES):
+    """Device time per call over ``reps`` calls queued back to back
+    between one pair of CUDA events, behind a spin that outlasts their
+    enqueue: the gaps between launches count, the host's time does not.
+    Returns ``(ms, queued_ahead)``; ``queued_ahead`` is False when the
+    device reached the first event before the host had queued every call
+    (then the number holds host time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(RUN_SPIN_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    queued_ahead = not a.query()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps, queued_ahead
+
+
+def flushed_ms(fn, flush, reps=20):
+    """Median device time of one call with L2 flushed before it:
+    ``flush`` reads a buffer larger than L2, then a spin as in
+    :func:`time_ms` keeps the host's time out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def wall_ms(fn, reps=20):
+    """Median host time of one call up to the end of its device work."""
+    import torch
+
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def profile_windows(parts) -> dict:
+    """One ``torch.profiler`` session over ``parts``, ``(label, fn)``
+    pairs run in turn, each inside ``record_function(label)`` and
+    synchronized before its window closes.  Per label: the names of the
+    CUDA kernels launched in its window, the device ms of those kernels
+    and of its copies (``Memcpy``/``Memset`` events), the device ms of
+    each CUDA event name (``by_name``), and its wall ms.  Under
+    ``"unplaced"``: the device events that no window launched; under
+    ``"clock_offset_us"``: the least and most of a device event's start
+    less its runtime call's, as the trace gives them.
+
+    A device event is placed by the host clock, at the start of the
+    runtime call that launched it (the CPU event of the same correlation
+    id), or else of the op it is linked to.  Its own start is on the
+    card's clock, which the trace maps onto the host's with an offset
+    that drifts, in one run on the card far enough to put a call's
+    kernels into the window before.  One
+    session for all parts: the first session in a process starts CUPTI,
+    and training run after profiler sessions slowed about twofold on the
+    card, and a session after the cluster's threads saw no device events
+    (PERF.md §6)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    out = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for label, fn in parts:
+            t0 = time.perf_counter()
+            with record_function(label):
+                fn()
+                torch.cuda.synchronize()
+            out[label] = {"kernels": [], "copies": [], "kernel_ms": 0.0, "copy_ms": 0.0,
+                          "by_name": {}, "wall_ms": (time.perf_counter() - t0) * 1e3}
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in host if e.name in out]
+    runtime = {e.id: e.time_range.start for e in host if e.name.startswith("cu")}
+    ops = {e.id: e.time_range.start for e in host
+           if not e.name.startswith("cu") and not getattr(e, "linked_correlation_id", 0)}
+    device = sorted((e for e in events if e.device_type == DeviceType.CUDA and e.name not in out),
+                    key=lambda e: e.time_range.start)
+    unplaced, offsets = [], []
+    for e in device:
+        at = runtime.get(e.id, ops.get(getattr(e, "linked_correlation_id", 0) or -1))
+        if e.id in runtime:
+            offsets.append(e.time_range.start - at)
+        label = next((lb for lb, start, end in spans if at is not None and start <= at <= end),
+                     None)
+        if label is None:
+            unplaced.append(e.name[:80])
+            continue
+        w, ms = out[label], e.time_range.elapsed_us() / 1e3
+        kind = "copy" if e.name.startswith(("Memcpy", "Memset")) else "kernel"
+        w["copies" if kind == "copy" else "kernels"].append(e.name[:80])
+        w[f"{kind}_ms"] += ms
+        w["by_name"][e.name] = w["by_name"].get(e.name, 0.0) + ms
+    out["unplaced"] = unplaced
+    out["clock_offset_us"] = [min(offsets), max(offsets)] if offsets else None
+    return out
+
+
+def k3_edges(bv):
+    """Edge keys of a vector: its capacity's and word domain's ends, -1,
+    the int32 maximum, and a key that wraps round to 5 in int32."""
+    import numpy as np
+
+    dom = 32 * np.asarray(bv.words).view(np.uint32).size
+    return np.array([0, bv.capacity - 1, bv.capacity, dom - 1, dom, -1, 2**31 - 1, 2**32 + 5],
+                    dtype=np.int64)
+
+
+def k3_keys(table, bv, rng):
+    """K3's largest call on the SF1 store's vector: every present key,
+    then 100,000 absent keys inside the key range, then the edge keys
+    (``k3_edges``).  Returns ``(keys, absent, edges)``, int64."""
+    import numpy as np
+
+    absent = rng.integers(0, table.max_key, 400_000)
+    absent = absent[~bv.test(absent)][:100_000]
+    edges = k3_edges(bv)
+    return np.concatenate([table.keys, absent, edges]), absent, edges
+
+
+def k3_times(bvk, ref, words, keys, dev) -> dict:
+    """K3 at one 65,536-key chunk (the first of ``keys``) and at all of
+    ``keys`` padded to 1,024 (its path's largest call), through each
+    entry the package has: the reference's contract (``bitvector_call``,
+    int32 keys with those outside int32 mapped to -1, int32 bits) and,
+    where present, the caller's keys as they are
+    (``bitvector_test_call``, int64 keys, bools).  Per shape and entry,
+    in the order plain, kernel, kernel, plain: the median single launch
+    (``time_ms``), the time per launch over a run of RUN_LAUNCHES
+    (``run_ms``), at the large shape the median with L2 flushed
+    (``flushed_ms``), each result held against the plain version.  The
+    bound counts each key and result byte once and each word the keys
+    touch once.  And the launch floor: an empty kernel
+    (``torch.cuda._sleep(0)``) timed the same two ways."""
+    import numpy as np
+    import torch
+
+    dom = 32 * int(words.shape[0])
+    flush_buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    floor_run, floor_ahead = run_ms(lambda: torch.cuda._sleep(0))
+    out = {"launch_floor": {"single_ms": time_ms(lambda: torch.cuda._sleep(0)),
+                            "run_ms": floor_run, "run_queued_ahead": floor_ahead},
+           "shapes": []}
+    entries = [("int32_to_int32", torch.int32, 4,
+                lambda kt: (lambda: bvk.bitvector_call(kt, words, 1024)))]
+    if hasattr(bvk, "bitvector_test_call"):
+        entries.append(("int64_to_bool", torch.int64, 1,
+                        lambda kt: (lambda: bvk.bitvector_test_call(kt, words))))
+    for n in (65536, keys.size):
+        kh = keys[:n]
+        n_pad = -(-n // 1024) * 1024
+        touched = np.unique(kh[(kh >= 0) & (kh < dom)] >> 5).size
+        for label, dtype, out_bytes, make in entries:
+            kn = np.where((kh >= 0) & (kh <= 2**31 - 1), kh, -1) if dtype == torch.int32 else kh
+            kt = torch.from_numpy(np.pad(kn, (0, n_pad - n))).to(dev, dtype)
+            fn = make(kt)
+
+            def plain():
+                return ref.ref_bitvector_test(words, kt)
+
+            check(torch.equal(fn().int(), plain()), f"K3 {label} differs from plain at n={n}")
+            big = n_pad > 65536
+            runs = {"plain": [time_ms(plain)], "single": [], "run": [], "queued_ahead": [],
+                    "flushed": []}
+            for _ in range(2):
+                runs["single"].append(time_ms(fn))
+                ms, ahead = run_ms(fn)
+                runs["run"].append(ms)
+                runs["queued_ahead"].append(ahead)
+                if big:
+                    runs["flushed"].append(flushed_ms(fn, flush_buf.sum))
+            runs["plain"].append(time_ms(plain))
+            io = n_pad * (kt.element_size() + out_bytes) + touched * 4
+            out["shapes"].append({
+                "entry": label, "keys": n_pad, "words_touched": int(touched), "bytes": io,
+                "bound_ms": io / PEAK_BYTES_PER_S * 1e3, "single_ms": min(runs["single"]),
+                "run_ms": min(runs["run"]),
+                "flushed_ms": min(runs["flushed"]) if big else None,
+                "plain_ms": min(runs["plain"]), "runs": runs,
+            })
+    return out
+
+
+def k3_call_split(ops, bv, keys, dev, before=()):
+    """``ops.bitvector_test`` on ``keys`` as a caller holds them: contiguous
+    int64, the same as int32 (clipped to int32), a strided int64 view,
+    and the first 65,536 as int64.  Per call: the CUDA kernels it runs
+    and their device ms, its copies' device ms (the word upload), its
+    device span (``time_ms``) and its wall time; and the word upload
+    (``ops.words_tensor``) alone.  The calls are profiled in one
+    ``profile_windows`` session, after the ``before`` parts.  Returns the
+    split and the session's windows."""
+    import numpy as np
+    import torch
+
+    t64 = torch.from_numpy(keys).to(dev)
+    t32 = torch.from_numpy(np.clip(keys, -2**31, 2**31 - 1).astype(np.int32)).to(dev)
+    strided = torch.from_numpy(np.repeat(keys, 2)).to(dev)[::2]
+    out = {"upload": {"bytes": int(np.asarray(bv.words).nbytes),
+                      "device_ms": time_ms(lambda: ops.words_tensor(bv.words, dev)),
+                      "wall_ms": wall_ms(lambda: ops.words_tensor(bv.words, dev))}}
+    calls = {}
+    for label, t in (("int64", t64), ("int32", t32), ("int64_strided", strided),
+                     ("int64_65536", t64[:65536])):
+        calls[label] = (t, lambda t=t: ops.bitvector_test(bv.words, t))
+        calls[label][1]()
+    windows = profile_windows([*before, *((f"bitvector_test {label}", call)
+                                          for label, (_, call) in calls.items())])
+    for label, (t, call) in calls.items():
+        prof = windows[f"bitvector_test {label}"]
+        out[label] = {"keys": int(t.numel()), "kernels_per_call": len(prof["kernels"]),
+                      "kernels": prof["kernels"], "copies": prof["copies"],
+                      "kernel_ms": prof["kernel_ms"], "copy_ms": prof["copy_ms"],
+                      "device_ms": time_ms(call), "wall_ms": wall_ms(call)}
+    return out, windows
 
 
 #: The store's heads (width 8, four heads, cards 1000/5/3/1) under the
@@ -385,8 +647,11 @@ def model_times(dev, seed: int, plans: bool) -> list:
 
 def models_only(src: Path, seed: int, plans: bool) -> int:
     """``--models-only``: build the kernels of the package under
-    ``src/src`` and print the MODELS' times as one JSON line, so that two
-    checkouts can be compared in one call."""
+    ``src/src`` and print the MODELS' times, K3's (``k3_times``) and
+    ``ops.bitvector_test``'s split (``k3_call_split``) on the SF1 orders
+    table's existence vector as one JSON line, so that two checkouts can
+    be compared in one call."""
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -402,10 +667,23 @@ def models_only(src: Path, seed: int, plans: bool) -> int:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
-    ptxas = [ln.strip() for ln in build.BUILD_INFO["fused_mlp.cu"]["log"].splitlines()
-             if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in info["log"].splitlines()
+                    if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
+             for name, info in build.BUILD_INFO.items()}
+    from repro_torch.core import BitVector
+    from repro_torch.data.tpch import orders_like
+    from repro_torch.kernels import bitvector as bvk
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    models = model_times(dev, seed, plans)
+    table = orders_like(ROWS, seed=seed)
+    bv = BitVector.from_keys(table.keys)
+    keys, _, _ = k3_keys(table, bv, np.random.default_rng(seed))
+    k3 = k3_times(bvk, ref, ops.words_tensor(bv.words, dev), keys, dev)
     print(json.dumps({"phase": "models", "src": str(src), "nvidia_smi": smi, "ptxas": ptxas,
-                      "models": model_times(torch.device("cuda"), seed, plans)}),
+                      "models": models, "k3": k3,
+                      "k3_call": k3_call_split(ops, bv, keys, dev)[0]}),
           flush=True)
     return 0
 
@@ -822,7 +1100,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--models-only", action="store_true",
-                    help="only time K1 and K2 on the wider models, through the public calls")
+                    help="only time K1 and K2 on the wider models and K3 on the SF1 vector, "
+                         "through the public calls")
     ap.add_argument("--src", type=Path, default=ROOT,
                     help="with --models-only: the checkout whose src/ package to time")
     ap.add_argument("--plans", action="store_true",
@@ -1220,45 +1499,89 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
         return out
 
     # ---------------------------------------------------- 3. bitvector
-    # K3's path is its public entry point, bitvector_test, over the SF1
-    # store's existence vector; its results are then held against the
-    # plain version (on the card) and the host BitVector.test.
+    # K3's path is its public entry point, bitvector_test, on keys as a
+    # caller holds them: int64 and int32, contiguous, misaligned views,
+    # a strided view, lengths 1 to 9, 1,023 to 65,537 and all 1.6 M SF1
+    # keys with absent ones, over the SF1 store's existence vector and a
+    # 10^8-slot vector; one K3 launch a call.  Its results are then held
+    # against the plain version (on the card) and the host
+    # BitVector.test, and the reference's contract (bitvector_call, int32
+    # -> int32) against the plain version on the largest calls' keys.
     dom = 32 * words.shape[0]
-    bv_edges = np.array([0, bv.capacity - 1, bv.capacity, dom - 1, dom, -1, 2**31 - 1,
-                         2**32 + 5], dtype=np.int64)
-    absent_k3 = rng.integers(0, table.max_key, 400_000)
-    absent_k3 = absent_k3[~bv.test(absent_k3)][:100_000]
+    k3_sf1, absent_k3, bv_edges = k3_keys(table, bv, rng)
     k3_inputs = []
     for n in (1023, 1024, 1025, 65536, 65537):
         k3_inputs.append(np.concatenate([
             bv_edges, rng.choice(table.keys, (n - bv_edges.size) // 2),
             rng.integers(-64, dom + 64, n - bv_edges.size - (n - bv_edges.size) // 2),
         ]))
-    k3_inputs.append(np.concatenate([table.keys, absent_k3, bv_edges]))
-    k3_dev = [torch.from_numpy(k).to(dev) for k in k3_inputs]
+    rng3 = np.random.default_rng([args.seed, 3])
+    big_set = np.unique(rng3.integers(0, K3_BIG_SLOTS, K3_BIG_SET))
+    big_bv = BitVector.from_keys(big_set, capacity=K3_BIG_SLOTS)
+    big_words = ops.words_tensor(big_bv.words, dev)
+    big_absent = rng3.integers(0, K3_BIG_SLOTS, 400_000)
+    big_keys = np.concatenate([big_set, big_absent[~big_bv.test(big_absent)][:100_000],
+                               k3_edges(big_bv)])
+    # A base of 65,540 keys, so that its view [3:] holds 65,537.
+    mix = np.concatenate([bv_edges, rng3.choice(table.keys, 32_770),
+                          rng3.integers(-64, dom + 64, 65_540 - 32_770 - bv_edges.size)])
+    rng3.shuffle(mix)
+    k3_cases = []  # (label, vector, its words on the card, keys on the card)
+    for kn in (*k3_inputs, k3_sf1):
+        t64 = torch.from_numpy(kn).to(dev)
+        k3_cases.append((f"int64 n={kn.size}", bv, words, t64))
+        k3_cases.append((f"int32 n={kn.size}", bv, words,
+                         t64.clamp(-2**31, 2**31 - 1).to(torch.int32)))
+    for dtype in (torch.int64, torch.int32):
+        base = torch.from_numpy(mix).to(dev).clamp(-2**31, 2**31 - 1).to(dtype) \
+            if dtype == torch.int32 else torch.from_numpy(mix).to(dev)
+        views = [("[1:]", base[1:]), ("[3:]", base[3:]), ("[::2]", base[::2])]
+        views += [(f"[:{n}]", base[:n]) for n in range(1, 10)]
+        views += [(f"[3:{3 + n}]", base[3:3 + n]) for n in range(1, 10)]
+        k3_cases += [(f"{str(dtype)[6:]} {label}", bv, words, v) for label, v in views]
+    big_t = torch.from_numpy(big_keys).to(dev)
+    k3_cases.append((f"10^8 slots int64 n={big_keys.size}", big_bv, big_words, big_t))
+    k3_cases.append((f"10^8 slots int32 n={big_keys.size}", big_bv, big_words,
+                     big_t.clamp(-2**31, 2**31 - 1).to(torch.int32)))
     torch.cuda.synchronize()
     reset_launches()
-    k3_out = [ops.bitvector_test(bv.words, k) for k in k3_dev]
+    k3_out = [ops.bitvector_test(vec.words, t) for _, vec, _, t in k3_cases]
     paths["bitvector"] = read_launches()
     k3_launches = paths["bitvector"]["bitvector"]
-    k3_cases = []
+    check(k3_launches == len(k3_cases),
+          f"{len(k3_cases)} bitvector_test calls launched K3 {k3_launches} times")
+    k3_rows = []
     k3_err = 0
-    for keys, kd, got in zip(k3_inputs, k3_dev, k3_out):
-        plain = ref.ref_bitvector_test(words, kd).bool()
-        host = bv.test(keys)
-        check(torch.equal(got, plain), f"K3 differs from its plain version at n={keys.size}")
-        check(np.array_equal(got.cpu().numpy(), host),
-              f"K3 differs from BitVector.test at n={keys.size}")
+    for (label, vec, w32, t), got in zip(k3_cases, k3_out):
+        plain = ref.ref_bitvector_test(w32, t).bool()
+        host = vec.test(t.cpu().numpy().astype(np.int64))
+        check(got.dtype == torch.bool and got.shape == t.shape, f"K3 result of {label}: "
+              f"{got.dtype} {tuple(got.shape)}")
+        check(torch.equal(got, plain), f"K3 differs from its plain version on {label}")
+        check(np.array_equal(got.cpu().numpy(), host), f"K3 differs from BitVector.test on {label}")
         k3_err = max(k3_err, int((got.int() - plain.int()).abs().max()))
-        k3_cases.append({"n": int(keys.size), "present": int(host.sum())})
-    check(k3_launches == len(k3_inputs), "a bitvector_test call did not launch K3 once")
-    sf1_bits = k3_out[-1]
+        k3_rows.append({"case": label, "n": int(t.numel()), "present": int(host.sum())})
+    sf1_bits = k3_out[2 * len(k3_inputs)]
     check(bool(sf1_bits[: table.num_rows].all())
           and not sf1_bits[table.num_rows : table.num_rows + absent_k3.size].any(),
           "K3 misreads the SF1 present or absent keys")
-    emit("bitvector_vs_plain", cases=k3_cases, edges=bv_edges.tolist(), capacity=bv.capacity,
-         word_domain=dom, n_words=int(words.shape[0]), launches=k3_launches,
-         max_abs_err=k3_err)
+    # The reference's contract on the two largest calls' keys, aligned
+    # and at a 4-byte offset (comparison launches: not on the path).
+    k3_contract = []
+    for label, w32, kn in (("SF1", words, k3_sf1), ("10^8 slots", big_words, big_keys)):
+        n_pad = -(-kn.size // 1024) * 1024
+        k = np.where((kn >= 0) & (kn <= 2**31 - 1), kn, -1)
+        kp = torch.from_numpy(np.pad(k, (0, n_pad + 1024 - k.size))).to(dev, torch.int32)
+        for at, v in (("aligned", kp[:n_pad]), ("[1:]", kp[1:1 + n_pad])):
+            got = bvk.bitvector_call(v, w32, 1024)
+            check(got.dtype == torch.int32 and torch.equal(got, ref.ref_bitvector_test(w32, v)),
+                  f"K3 int32 -> int32 differs from its plain version on {label} {at}")
+            k3_contract.append({"case": f"{label} {at}", "n": n_pad})
+    emit("bitvector_vs_plain", cases=k3_rows, edges=bv_edges.tolist(), capacity=bv.capacity,
+         word_domain=dom, n_words=int(words.shape[0]),
+         big_vector={"capacity": big_bv.capacity, "n_words": int(big_words.shape[0]),
+                     "keys_set": int(big_set.size)},
+         calls=len(k3_cases), launches=k3_launches, max_abs_err=k3_err, contract=k3_contract)
 
     # ---------------------------------------------------------- 4. main
     reset_launches()
@@ -1413,11 +1736,11 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     check(train_launches["fused_lookup"] > 0 and train_launches["fused_mlp"] > 0,
           "a kernel was not launched")
     # Where a training step's time goes: a torch.profiler trace of a few
-    # steps at the trainer's batch, device kernel time by name against
-    # the host clock.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    # steps at the trainer's batch, device time by name against the host
+    # clock.  In the same session (the process's only one, started after
+    # SF1 has trained): one bitvector_test call on contiguous keys runs
+    # one CUDA kernel beside the word upload, a strided view one copy
+    # kernel more.
     tspec = tstore.spec
     tcodes = np.stack([tstore.codecs[t].codes for t in tspec.tasks], axis=1)
     pd = torch.from_numpy(tstore.encoder.digits(train_table.keys[:16384])).to(dev)
@@ -1428,22 +1751,25 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
         pparams, popt, _ = trainer_lib._train_step(pparams, popt, pd, pc, tspec, 1e-3, 0.999)
     torch.cuda.synchronize()
     prof_steps = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def profiled_steps():
+        nonlocal pparams, popt
         for _ in range(prof_steps):
             pparams, popt, _ = trainer_lib._train_step(pparams, popt, pd, pc, tspec, 1e-3, 0.999)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    by_kernel: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+
+    t0 = time.perf_counter()
+    k3_split, windows = k3_call_split(ops, bv, k3_sf1, dev,
+                                      before=[("train steps", profiled_steps)])
+    session_s = time.perf_counter() - t0  # the session's start and the K3 split's timings too
+    prof = windows["train steps"]
+    by_kernel = prof["by_name"]
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     step_profile = {
-        "steps": prof_steps, "wall_ms_per_step": prof_wall * 1e3 / prof_steps,
+        "steps": prof_steps, "wall_ms_per_step": prof["wall_ms"] / prof_steps,
+        "session_s": session_s,
         "device_ms_per_step": busy / prof_steps if by_kernel else None,
-        "device_idle_share": 1 - busy / (prof_wall * 1e3) if by_kernel else None,
+        "device_idle_share": 1 - busy / prof["wall_ms"] if by_kernel else None,
         "top_kernels_ms_per_step": [(k[:90], v / prof_steps) for k, v in top],
     }
     emit(
@@ -1462,6 +1788,12 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
                 "exist_s": tls.exist_s, "aux_s": tls.aux_s, "decode_s": tls.decode_s},
         step_profile=step_profile,
     )
+    emit("bitvector_profile", call_split=k3_split, unplaced=windows["unplaced"],
+         clock_offset_us=windows["clock_offset_us"])
+    for label, want in (("int64", 1), ("int32", 1), ("int64_65536", 1), ("int64_strided", 2)):
+        got_k = k3_split[label]["kernels"]
+        check(len(got_k) == want and "bitvector_kernel" in got_k[-1],
+              f"bitvector_test on {label} keys ran {got_k}, not {want} kernel(s) ending in K3")
 
     # ------------------------------------------------------- 7. persist
     # The trained store saved by the port in the reference's v2 layout
@@ -2482,34 +2814,28 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
             "ms_runs": [ms, ms_b], "plain_ms_runs": [plain_a, plain_b],
             "flops": n * flops_key, "bytes": io,
         })
-    # K3 at one 65,536-key chunk and at its path's largest call (every
-    # present key plus the absent ones).  Bound: keys in and bits out
-    # once, and each word these keys touch read once.
-    k3_times = {}
-    for n3 in (n, k3_inputs[-1].size):
-        kh = k3_inputs[-1][:n3]
-        k3 = torch.from_numpy(np.where((kh >= 0) & (kh <= 2**31 - 1), kh, -1)).to(dev)
-        kp3 = torch.nn.functional.pad(k3.to(torch.int32), (0, -n3 % 1024))
-        plain_a = time_ms(lambda: ref.ref_bitvector_test(words, kp3))
-        ms = time_ms(lambda: bvk.bitvector_call(kp3, words, 1024))
-        ms_b = time_ms(lambda: bvk.bitvector_call(kp3, words, 1024))
-        plain_b = time_ms(lambda: ref.ref_bitvector_test(words, kp3))
-        touched = np.unique(kh[(kh >= 0) & (kh < dom)] >> 5).size
-        io = int(kp3.numel()) * 8 + touched * 4
-        k3_times[n3] = {"ms": min(ms, ms_b), "plain_ms": min(plain_a, plain_b),
-                        "bound_ms": io / PEAK_BYTES_PER_S * 1e3, "ms_runs": [ms, ms_b],
-                        "plain_ms_runs": [plain_a, plain_b], "keys": int(kp3.numel()),
-                        "words_touched": touched, "bytes": io}
-    sf1 = k3_times[k3_inputs[-1].size]
+    # K3 (k3_times): both entries at one 65,536-key chunk and at its
+    # path's largest call, and the launch floor.  The summary's ms,
+    # plain_ms and bound_ms are the reference's contract (int32 -> int32)
+    # at the chunk, its *_sf1 fields at the largest call; *_bool_sf1 are
+    # the public call's instantiation (int64 -> bool) there.
+    k3t = k3_times(bvk, ref, words, k3_sf1, dev)
+    k3_row = {(r["entry"], r["keys"]): r for r in k3t["shapes"]}
+    chunk = k3_row[("int32_to_int32", n)]
+    sf1 = k3_row[("int32_to_int32", -(-k3_sf1.size // 1024) * 1024)]
+    sf1_bool = k3_row[("int64_to_bool", sf1["keys"])]
     kernels.append({
         "name": "bitvector", "route": "cuda", "source": "src/repro_torch/csrc/bitvector.cu",
         "replaces": "src/repro/kernels/bitvector.py:47",
         "launches": sum(c["bitvector"] for c in paths.values()),
-        "max_abs_err": k3_err, **k3_times[n], "bound_by": "bytes", "library_ms": None,
+        "max_abs_err": k3_err, "ms": chunk["single_ms"], "plain_ms": chunk["plain_ms"],
+        "bound_ms": chunk["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "launches_by_path": {path: c["bitvector"] for path, c in paths.items()},
-        "ms_sf1": sf1["ms"], "plain_ms_sf1": sf1["plain_ms"], "bound_ms_sf1": sf1["bound_ms"],
-        "keys_sf1": sf1["keys"], "sf1_runs": {k: sf1[k] for k in ("ms_runs", "plain_ms_runs",
-                                                                  "words_touched", "bytes")},
+        "ms_sf1": sf1["single_ms"], "plain_ms_sf1": sf1["plain_ms"],
+        "bound_ms_sf1": sf1["bound_ms"], "keys_sf1": sf1["keys"], "run_ms_sf1": sf1["run_ms"],
+        "flushed_ms_sf1": sf1["flushed_ms"], "ms_bool_sf1": sf1_bool["single_ms"],
+        "bound_ms_bool_sf1": sf1_bool["bound_ms"],
+        "launch_floor_ms": k3t["launch_floor"]["single_ms"], "timings": k3t,
     })
     # K1 and K2 under every plan of the store's model that fits, same keys.
     by_plan = {}
@@ -2569,7 +2895,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
     summary = [{k: v for k, v in kern.items() if not k.endswith("_runs")
-                and k not in ("flops", "bytes", "words_touched")} for kern in kernels]
+                and k not in ("flops", "bytes", "timings")} for kern in kernels]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -285,17 +285,16 @@ def bitvector_test(words64, keys: torch.Tensor, tile_n: int = 1024) -> torch.Ten
     (n,) bool.
 
     The kernel works on uint32 words, split from the uint64 words on the
-    host.  Negative keys and keys above int32 become -1 before the launch
-    (as the engine's ``_keys_i32`` does), so they read as absent instead
-    of wrapping round to another key's bit; every key outside
-    ``[0, 32 * n_words)`` reads as absent.  The batch is padded with key
-    0 to a multiple of ``tile_n``, as the reference pads it."""
+    host and uploaded on every call, as the reference does.  Contiguous
+    int32 or int64 keys go to the kernel as they are, in one launch; any
+    other dtype or stride is first made contiguous int64.  A key reads
+    as present only if ``0 <= k <= 2**31 - 1`` and ``k >> 5 < n_words``,
+    so a key above int32 never wraps round to another key's bit.
+    ``tile_n`` is the reference's padding granularity; the kernel needs
+    no padding and does not read it."""
     if not isinstance(keys, torch.Tensor):
         raise TypeError(f"keys must be a tensor (its device picks the path), got {type(keys)}")
     words32 = words_tensor(np.asarray(words64, dtype=np.uint64), keys.device)
-    k = keys.to(torch.int64)
-    k = torch.where((k >= 0) & (k <= 2**31 - 1), k, torch.full_like(k, -1))
-    n = k.shape[0]
-    kp = F.pad(k.to(torch.int32), (0, _round_up(max(n, tile_n), tile_n) - n))
-    bits = bv_kernel.bitvector_call(kp, words32, tile_n)
-    return bits[:n].to(torch.bool)
+    if keys.dtype not in (torch.int32, torch.int64) or not keys.is_contiguous():
+        keys = keys.to(torch.int64).contiguous()
+    return bv_kernel.bitvector_test_call(keys, words32)

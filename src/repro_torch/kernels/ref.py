@@ -63,10 +63,11 @@ def ref_bitvector_test(words32: torch.Tensor, keys: torch.Tensor) -> torch.Tenso
     """Plain version of the existence test: words32 (n_words,) int32 view
     of the packed uint32 words (LSB first), keys (n,) integers.  Returns
     (n,) int32 ``(words[k >> 5] >> (k & 31)) & 1``, and 0 for a key
-    outside ``[0, 32 * n_words)`` — ``BitVector.test``'s answer there,
-    where the reference's oracle would index out of range."""
+    outside ``[0, min(32 * n_words, 2**31))`` — ``BitVector.test``'s
+    answer past the words, where the reference's oracle would index out
+    of range; a key above int32 reads as absent, as in the kernel."""
     k = keys.to(torch.int64)
-    in_dom = (k >= 0) & ((k >> 5) < words32.shape[0])
+    in_dom = (k >= 0) & (k <= 2**31 - 1) & ((k >> 5) < words32.shape[0])
     if not words32.numel():
         return torch.zeros_like(k, dtype=torch.int32)
     sk = torch.where(in_dom, k, torch.zeros_like(k))

@@ -110,6 +110,85 @@ class TestBitvectorKernel:
         np.testing.assert_array_equal(got, np.asarray(j_bitvector_test(jbv.words, jnp.asarray(q))))
 
 
+def _edge_keys(bv, capacity):
+    """The edge keys of ``test_out_of_domain_matches_host_bitvector``."""
+    dom = _domain(bv)
+    return np.array([dom, dom + 1, dom + 31, 2 * dom, -1, -32, -2**31, 2**31 - 1, 2**31,
+                     2**31 + 5, 2**32, 2**32 + 5, 2**40, -2**40, capacity, capacity - 1],
+                    dtype=np.int64)
+
+
+def _as_keys(q, dtype):
+    """``q`` as a tensor of ``dtype``; int32 keeps only the keys that fit."""
+    if dtype == torch.int32:
+        q = q[(q >= -2**31) & (q <= 2**31 - 1)]
+    return torch.from_numpy(q).to(dtype)
+
+
+def _view(base, view, n):
+    """n keys of ``base`` (at least 2n + 3 long): the whole of its first
+    n, or a view at an offset of 1 or 3 keys, or a stride of 2."""
+    return {"whole": base[:n], "[1:]": base[1:1 + n], "[3:]": base[3:3 + n],
+            "[::2]": base[::2][:n]}[view]
+
+
+def _holds(bv, jbv, keys):
+    """kernels.bitvector_test on ``keys`` (a tensor as the caller holds
+    it) equals BitVector.test on every key and the reference kernel
+    (Pallas, interpret mode) inside the word domain."""
+    got = kernels.bitvector_test(bv.words, keys)
+    assert got.dtype == torch.bool and got.shape == keys.shape
+    q = keys.numpy().astype(np.int64)
+    np.testing.assert_array_equal(got.numpy(), bv.test(q))
+    inside = (q >= 0) & (q < _domain(bv))
+    if inside.any():
+        want = np.asarray(j_bitvector_test(jbv.words, jnp.asarray(q[inside])))
+        np.testing.assert_array_equal(got.numpy()[inside], want)
+    return got
+
+
+VIEWS = ("whole", "[1:]", "[3:]", "[::2]")
+
+
+class TestCallersKeys:
+    """``bitvector_test`` on keys as a caller holds them: int32 or int64,
+    contiguous, at a misaligned offset or strided, of any length (the
+    card launches the kernel on them as they are; a strided view is made
+    contiguous first)."""
+
+    @pytest.mark.parametrize("n", [*range(1, 10), 65537])
+    @pytest.mark.parametrize("view", VIEWS)
+    @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+    def test_views_and_lengths(self, dtype, view, n):
+        bv, jbv = _vector(100_000, n)
+        rng = np.random.default_rng([n, VIEWS.index(view)])
+        dom = _domain(bv)
+        base = np.concatenate([_edge_keys(bv, 100_000),
+                               rng.integers(-64, dom + 64, 2 * n + 3)])
+        rng.shuffle(base)
+        keys = _view(_as_keys(base, dtype), view, n)
+        assert keys.shape == (n,) and keys.is_contiguous() == (view != "[::2]" or n == 1)
+        _holds(bv, jbv, keys)
+
+    @pytest.mark.parametrize("capacity", [100, 65536])
+    @pytest.mark.parametrize("view", VIEWS)
+    @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+    def test_edge_keys(self, dtype, view, capacity):
+        bv, jbv = _vector(capacity, capacity)
+        edges = _as_keys(_edge_keys(bv, capacity), dtype)
+        base = torch.cat([edges, edges, edges[:3]])
+        keys = _view(base, view, edges.shape[0])
+        got = _holds(bv, jbv, keys)
+        assert got.sum() <= 1  # only capacity - 1 can be present
+
+    def test_other_dtypes_widen(self):
+        bv, jbv = _vector(1000, 5)
+        for dtype in (torch.int16, torch.uint8, torch.float64):
+            keys = torch.arange(0, 120).to(dtype)
+            _holds(bv, jbv, keys)
+            _holds(bv, jbv, keys[1::3])
+
+
 class TestPlainVersionAndCall:
     def test_plain_version_matches_reference_oracle(self):
         rng = np.random.default_rng(3)
@@ -137,6 +216,42 @@ class TestPlainVersionAndCall:
             bv_kernel.bitvector_call(keys.long(), words32, 256)
         with pytest.raises(TypeError, match="tensor"):
             kernels.bitvector_test(bv.words, np.arange(5))
+
+    def test_test_call_contract_on_cpu(self):
+        """The caller's-keys entry: int32 or int64, contiguous, any length
+        and offset, bools out; its plain path launches nothing."""
+        bv, _ = _vector(1000, 4)
+        words32 = ops.words_tensor(bv.words, "cpu")
+        before = bv_kernel.bitvector_call.launches
+        for dtype in (torch.int32, torch.int64):
+            keys = torch.arange(-3, 1100, dtype=dtype)
+            for k in (keys, keys[1:], keys[3:8], keys[:1]):
+                out = bv_kernel.bitvector_test_call(k, words32)
+                assert out.dtype == torch.bool and out.shape == k.shape
+                np.testing.assert_array_equal(out.numpy(), bv.test(k.numpy().astype(np.int64)))
+            empty = bv_kernel.bitvector_test_call(keys[:0], words32)
+            assert empty.dtype == torch.bool and empty.shape == (0,)
+        assert bv_kernel.bitvector_call.launches == before  # CPU: no kernel launched
+        keys = torch.arange(0, 64, dtype=torch.int64)
+        with pytest.raises(ValueError, match="int32 or int64"):
+            bv_kernel.bitvector_test_call(keys.to(torch.int16), words32)
+        with pytest.raises(ValueError, match="contiguous"):
+            bv_kernel.bitvector_test_call(keys[::2], words32)
+        with pytest.raises(ValueError, match="1-d"):
+            bv_kernel.bitvector_test_call(keys.view(8, 8), words32)
+        with pytest.raises(ValueError, match="words32"):
+            bv_kernel.bitvector_test_call(keys, words32.long())
+        with pytest.raises(ValueError, match="one device"):
+            bv_kernel.bitvector_test_call(keys, words32.to("meta"))
+
+    def test_plain_version_domain_stops_at_int32(self):
+        """A key above int32 reads as absent even where its word exists
+        (more than 2**26 words), as in the kernel; below it, it reads its
+        bit."""
+        words32 = torch.ones(1, dtype=torch.int32).expand(2**26 + 4)
+        keys = torch.tensor([2**31 - 32, 2**31, 2**31 + 32, 2**32], dtype=torch.int64)
+        got = ref.ref_bitvector_test(words32, keys)
+        assert got.tolist() == [1, 0, 0, 0]
 
     def test_pack_words32_lives_with_the_kernel(self):
         bv, _ = _vector(1000, 2)
