@@ -18,7 +18,25 @@ on them against its plain PyTorch version on the card:
                 1,024, NaN/+-0/+-inf ties, hidden 1,024 and 2,048) that
                 take each tile shape: K2 codes and logits byte-identical
                 across plans, K1 codes equal to K2's, the default plan
-                against the plain version;
+                against the plain version.  Then ``mhas_space``: the MHAS
+                search space over the store's table at the paper's layer
+                sizes (100 to 2,000, depth 2; a 14-matrix weight bank)
+                with its LSTM controller, both made on the card from
+                ``--seed``; eight children (four fixed: depth 2 at width
+                2,000 everywhere, depth 0 everywhere, the trunk at depth 0
+                under 2 x 2,000 heads, the trunk at 2 x 2,000 under heads
+                of depth 0; four drawn by ``sample_arch``, each draw's logp
+                equal to ``logprob_of``'s) cut from the bank and run through
+                K2 on 16,384 SF1 keys: the logits against the masked
+                forward within 1e-4, the codes equal to its argmax but on
+                near ties, and both against K2's plain version; each
+                child's widths, tile plan, largest difference, margin rows
+                and seconds.  Then each child through an
+                ``InferenceEngine`` of its own, on the tier the engine's
+                budget rule picks (K2 through ``pallas_digits``, K1
+                through ``fused_streamed``, or the plain path): its codes
+                equal to the masked forward's but on near ties, its
+                launches those of its tier;
 3. bitvector  — K3 (the existence test) through ``bitvector_test`` on
                 keys as a caller holds them, one launch a call: int64 and
                 int32, contiguous, at offsets of 1 and 3 keys, strided,
@@ -147,11 +165,13 @@ on them against its plain PyTorch version on the card:
                 instantiation, and whole-table lookup throughput.
 
 Each kernel's launches are counted on every path that drives the port
-(phases 3 to 13), with the counts set to 0 just before each path and read
-just after; K1's launches that carried predicate tables are counted
-apart.  The launches made to compare a kernel with its plain version
-(phase 2, and in phases 11 and 12 after their counts are read) and those
-of phase 14 do not count.
+(the MHAS children of phase 2 through K2 as path ``mhas`` and through
+their engines as ``mhas_engine``, and phases 3 to 13), with
+the counts set to 0 just before each path and read just after; K1's
+launches that carried predicate tables are counted apart.  The launches
+made to compare a kernel with its plain version (the rest of phase 2,
+and in phases 11 and 12 after their counts are read) and those of phase
+14 do not count.
 Each phase prints one JSON line with its seconds (``phase_s``); any
 failed check raises (non-zero exit).  The last lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -214,6 +234,11 @@ ROWS = 1_500_000
 #: The paper's epoch cap (``PAPER_STORE``'s TrainConfig); training may
 #: stop earlier on |Δloss| < 1e-4.
 TRAIN_EPOCHS = 200
+#: The SF1 store's layers (the paper's store config) and the
+#: ``TrainConfig`` it trains with in the ``train`` phase.
+SF1_LAYERS = {"shared": (256, 256), "private": (64,)}
+SF1_TRAIN = {"batch_size": 16384, "epochs": TRAIN_EPOCHS, "lr": 1e-3, "lr_decay": 0.999,
+             "early_stop_tol": 1e-4}
 #: The reference benchmark's DM-R store (``benchmarks/common.py``): a
 #: smaller trunk, and residue features for the periods found at build;
 #: its TrainConfig is 60 epochs at batch 8,192 (early stop as default).
@@ -248,6 +273,15 @@ SERVE_ZIPF, SERVE_ABSENT, SERVE_OUT_CAP = 1.1, 0.05, 0.01
 SERVE_BIG_CALL, SERVE_FAULT_CALLS = 40, 4
 #: Requests of the launcher's runs (of 1,000 keys each, its default).
 LAUNCH_REQUESTS = 100
+#: The kernels phase's MHAS check: SF1 keys run through every child, the
+#: children the controller samples (beside the four fixed ones), and the
+#: tolerance of the masked forward against K2 on the extracted child: a
+#: 2,000-long fp32 contraction over zero padding in cuBLAS's order
+#: against K2's own order, so looser than LOGIT_TOL (K2 against its plain
+#: version).  Codes may differ only where the masked top-two margin is
+#: below twice it.
+MHAS_KEYS, MHAS_SAMPLED = 16_384, 4
+MHAS_TOL = 1e-4
 
 RECORD: dict = {}
 #: perf_counter at the end of the previous phase (the script's start for
@@ -571,11 +605,24 @@ def flops_per_key(spec) -> int:
         d = h
     for t in spec.tasks:
         hd = d
-        for h in spec.private_map[t]:
-            flops += 2 * hd * h
+        for h in (*spec.private_map[t], spec.card_map[t]):
+            flops += spec.width * h if hd is None else 2 * hd * h
             hd = h
-        flops += 2 * hd * spec.card_map[t]
     return flops
+
+
+def mlp_bound(spec, n: int, in_per_key: int, out_per_key: int, extra: int = 0) -> dict:
+    """K1's or K2's least time on ``n`` keys of ``spec``: the larger of its
+    fp32 operations over PEAK_FP32_FLOPS and its bytes over
+    PEAK_BYTES_PER_S.  The bytes are ``in_per_key`` and ``out_per_key``
+    a key (read and written once), the unpadded weights read once, and
+    ``extra`` (the existence words, the position table)."""
+    flops = n * flops_per_key(spec)
+    nbytes = n * (in_per_key + out_per_key) + 4 * spec.num_params() + extra
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_io = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_io), "bound_by": "operations" if t_ops >= t_io else "bytes",
+            "flops": flops, "bytes": nbytes}
 
 
 def model_times(dev, seed: int, plans: bool) -> list:
@@ -686,6 +733,157 @@ def models_only(src: Path, seed: int, plans: bool) -> int:
                       "k3_call": k3_call_split(ops, bv, keys, dev)[0]}),
           flush=True)
     return 0
+
+
+def mhas_space_check(spec, encoder, keys, dev, seed: int, margins, cmp_codes) -> dict:
+    """The MHAS search space over the store's table (``spec``'s base,
+    width, tasks and cards) at the paper's layer sizes (100 to 2,000) and
+    depth: the weight bank and the LSTM controller made on ``dev`` from
+    ``seed``; four fixed children (everything at depth 2 and width 2,000;
+    everything at depth 0, the out layers gathers; the trunk at depth 0
+    under heads of 2 x 2,000; the trunk at 2 x 2,000 under heads of depth
+    0) and MHAS_SAMPLED drawn by ``sample_arch``, each draw's logp equal
+    to ``logprob_of``'s.  Each child is cut from the bank and run through
+    K2 (logits, then codes) on ``keys``' digits: the logits against the
+    masked forward on the padded one-hot within MHAS_TOL, the codes equal
+    to its argmax but where its top-two margin is below 2 * MHAS_TOL; and
+    both against K2's plain version by the phase's rule (``margins``,
+    ``cmp_codes``, LOGIT_TOL).  Returns the record of its JSON line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.encoding import onehot_digits
+    from repro_torch.core.mhas import SearchSpace, controller
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import ops, ref
+
+    space = SearchSpace(base=spec.base, width=spec.width, tasks=spec.tasks,
+                        out_cards=tuple(spec.card_map[t] for t in spec.tasks))
+    bank = space.init_bank(seed=seed, device=dev)
+    cspec = controller.ControllerSpec.for_space(space)
+    cparams = controller.init_controller(cspec, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    widest = space.num_size_choices - 1
+    deep = [space.max_layers] + [widest] * space.max_layers
+    shallow = [0] * (1 + space.max_layers)
+    n_tasks = len(space.tasks)
+    children = [("depth 2, width 2,000 everywhere", deep * (1 + n_tasks)),
+                ("depth 0 everywhere", shallow * (1 + n_tasks)),
+                ("trunk depth 0, heads 2 x 2,000", shallow + deep * n_tasks),
+                ("trunk 2 x 2,000, heads depth 0", deep + shallow * n_tasks)]
+    draws = []
+    for i in range(MHAS_SAMPLED):
+        tokens, logp, entropy = controller.sample_arch(cparams, cspec, gen)
+        logp_r, entropy_r = controller.logprob_of(cparams, cspec, tokens)
+        check(bool(torch.isclose(logp, logp_r, rtol=1e-5, atol=0)),
+              f"sampled child {i}: sample_arch's logp {float(logp)} is not logprob_of's "
+              f"{float(logp_r)}")
+        draws.append({"logp": float(logp), "logprob_of": float(logp_r),
+                      "entropy": float(entropy), "entropy_of": float(entropy_r)})
+        children.append((f"sampled {i}", tokens))
+    digits = encoder.digits_torch(torch.from_numpy(keys).to(dev)).contiguous()
+    onehot = F.pad(onehot_digits(digits, space.base), (0, space.max_width - space.feature_dim))
+    base_pad = ops._round_up(space.base, ops.LANE)
+    rows, served = [], []
+    for name, tokens in children:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arch = space.tokens_to_arch(tokens)
+        cs = space.child_spec(arch)
+        check(space.child_num_params(arch) == cs.num_params(),
+              f"{name}: child_num_params is not the child spec's num_params")
+        aa = space.arch_arrays(arch, device=dev)
+        child = space.extract_child_params(bank, arch)
+        flat, _ = ops.pad_flat_weights(child, cs)
+        pads = ops.card_pads(cs)
+        # K2's least time for the logits launch: the digits in, the
+        # unpadded logits out.
+        bound = mlp_bound(cs, digits.shape[0], 4 * cs.width, 4 * sum(cs.card_map.values()))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        masked = space.forward(bank, onehot, aa)
+        ev[1].record()
+        logits = fm.fused_mlp_call(digits, flat, cs, ops.DEFAULT_TILE_N, base_pad, pads, False)
+        ev[2].record()
+        codes = fm.fused_mlp_call(digits, flat, cs, ops.DEFAULT_TILE_N, base_pad, pads, True)
+        ev[3].record()
+        # K2 against the masked forward on the bank.
+        masked_err, masked_codes, masked_marg = 0.0, [], []
+        for lg, t in zip(logits, cs.tasks):
+            want = masked[t]
+            got = lg[:, : want.shape[1]]
+            torch.testing.assert_close(got, want, rtol=MHAS_TOL, atol=MHAS_TOL)
+            masked_err = max(masked_err, (got - want).abs().max().item())
+            masked_codes.append(torch.argmax(want, dim=1))
+            top = torch.topk(want, min(2, want.shape[1]), dim=1).values
+            masked_marg.append(top[:, 0] - top[:, 1] if top.shape[1] > 1
+                               else torch.full_like(top[:, 0], float("inf")))
+        masked_codes = torch.stack(masked_codes, dim=1).to(torch.int32)
+        masked_marg = torch.stack(masked_marg, dim=1)
+        diff = codes != masked_codes
+        check(bool((masked_marg[diff] < 2 * MHAS_TOL).all()),
+              f"{name}: K2's codes differ from the masked forward's on a row with a clear margin")
+        # K2 against its plain version on the same child.
+        plain_margin_rows, _ = cmp_codes(codes, ref.fused_mlp(digits, flat, cs, True),
+                                         margins(digits, flat, cs))
+        plain_err = 0.0
+        for a, b in zip(logits, ref.fused_mlp(digits, flat, cs, False)):
+            torch.testing.assert_close(a, b, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+            plain_err = max(plain_err, (a - b).abs().max().item())
+        torch.cuda.synchronize()
+        rows.append({
+            "child": name, "tokens": [int(t) for t in tokens],
+            "shared": list(cs.shared), "private": {t: list(p) for t, p in cs.private},
+            "num_params": cs.num_params(), "plan": fm.tile_plan(cs).describe(),
+            "masked_max_abs_diff": masked_err,
+            "masked_margin_rows": int(diff.any(dim=1).sum()),
+            "plain_max_abs_err": plain_err, "plain_margin_rows": plain_margin_rows,
+            "masked_forward_ms": ev[0].elapsed_time(ev[1]),
+            "k2_logits_ms": ev[1].elapsed_time(ev[2]), "k2_codes_ms": ev[2].elapsed_time(ev[3]),
+            "k2_bound_ms": bound["bound_ms"], "k2_bound_by": bound["bound_by"],
+            "seconds": time.perf_counter() - t0,
+        })
+        served.append((name, cs, child, masked_codes, masked_marg))
+    layers = [*bank["trunk"], *(layer for head in bank["heads"].values()
+                                for layer in (*head["hidden"], head["out"]))]
+    return {"keys": int(keys.size), "max_width": space.max_width,
+            "layer_sizes": list(space.layer_sizes), "max_layers": space.max_layers,
+            "bank_matrices": len(layers),
+            "bank_bytes": sum(int(t.numel()) * t.element_size()
+                              for layer in layers for t in layer.values()),
+            "masked_tol": MHAS_TOL, "logit_tol": LOGIT_TOL, "sampled": draws,
+            "children": rows}, served
+
+
+def mhas_engine_check(served, encoder, keys, dev) -> list:
+    """Each child of ``mhas_space_check`` (``served``: name, spec, params
+    cut from the bank, the masked forward's codes and top-two margins)
+    looked up as a store would look it up: an ``InferenceEngine`` over
+    the child, one ``dispatch``/``collect`` of ``keys``.  The engine
+    picks the tier by its own budget rule (K2 through ``pallas_digits``,
+    K1 through ``fused_streamed``, or the plain path); its codes must
+    equal the masked forward's but where the margin is below
+    2 * MHAS_TOL.  Returns each child's tier, pages, margin rows and
+    milliseconds."""
+    import torch
+
+    from repro_torch.core.inference import InferenceEngine
+
+    rows = []
+    for name, cs, child, masked_codes, masked_marg in served:
+        engine = InferenceEngine(encoder, cs, child, device=dev)
+        t0 = time.perf_counter()
+        ticket = engine.dispatch(keys)
+        codes, _ = engine.collect(ticket)
+        ms = (time.perf_counter() - t0) * 1e3
+        diff = torch.from_numpy(codes).to(dev) != masked_codes
+        check(bool((masked_marg[diff] < 2 * MHAS_TOL).all()),
+              f"{name}: the engine's codes ({ticket.path}) differ from the masked forward's "
+              f"on a row with a clear margin")
+        rows.append({"child": name, "tier": ticket.path,
+                     "pages": len(ticket.codes_dev) if ticket.path == "fused_streamed" else 1,
+                     "margin_rows": int(diff.any(dim=1).sum()), "ms": ms})
+    return rows
 
 
 def baseline_table(name: str, seed: int):
@@ -1202,8 +1400,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     # The slice's full width: TPC-H orders at SF1, the paper's store.
     table = orders_like(ROWS, seed=args.seed)
     config = DeepMappingConfig(
-        base=10, codec="zstd", partition_bytes=4 * 1024 * 1024,
-        shared=(256, 256), private=(64,),
+        base=10, codec="zstd", partition_bytes=4 * 1024 * 1024, **SF1_LAYERS,
     )
     encoder = KeyEncoder(table.max_key, base=config.base)
     codecs = build_codecs(table.columns)
@@ -1434,6 +1631,36 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     check(tiles_seen == {t.name for t in fm.TILES}, f"coverage models took only {tiles_seen}")
     emit("kernels_vs_plain", cases=cases, max_abs_err=kern_err, margin_rows=margin_rows,
          logit_tol=LOGIT_TOL, margin_tol=MARGIN_TOL, plan_sweep=sweep, coverage=coverage)
+
+    # The MHAS search space over this table: children at the paper's
+    # widths cut from the weight bank and served through K2, whose
+    # launches count on a path of their own.  The keys come from a
+    # generator of their own, so later phases draw as they did before.
+    mhas_rng = np.random.default_rng(args.seed)
+    mhas_keys = np.concatenate([[0, table.max_key],
+                                mhas_rng.choice(table.keys, MHAS_KEYS - 2, replace=False)])
+    reset_launches()
+    mhas, served = mhas_space_check(spec, encoder, mhas_keys, dev, args.seed, margins,
+                                    cmp_codes)
+    paths["mhas"] = read_launches()
+    check(paths["mhas"]["fused_mlp"] >= 2 * len(mhas["children"]),
+          "a child of the search space was not served through K2")
+    check(paths["mhas"]["fused_lookup"] == 0 and paths["mhas"]["bitvector"] == 0,
+          "the MHAS check launched K1 or K3")
+    # The same children through the engine's own tier choice, on a path
+    # of their own: one K2 launch a pallas_digits child, one K1 launch a
+    # page of a fused_streamed one, none on the plain path.
+    reset_launches()
+    engine_rows = mhas_engine_check(served, encoder, mhas_keys, dev)
+    paths["mhas_engine"] = read_launches()
+    del served
+    want = {"fused_mlp": sum(r["tier"] == "pallas_digits" for r in engine_rows),
+            "fused_lookup": sum(r["pages"] for r in engine_rows
+                                if r["tier"] == "fused_streamed"), "bitvector": 0}
+    check(all(paths["mhas_engine"][k] == v for k, v in want.items()),
+          f"the engine's launches {paths['mhas_engine']} are not its tiers' {want}")
+    emit("mhas_space", launches=paths["mhas"], engine=engine_rows,
+         engine_launches=paths["mhas_engine"], **mhas)
 
     def store_kernels_vs_plain(s, keys):
         """K1 (where the store's key domain fits int32) and K2 on a trained
@@ -1692,8 +1919,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     # evaluates T_aux through K2 and serves through K1.  The trainer is
     # wrapped only to read its loss history and time it.
     train_table = orders_like(ROWS, seed=args.seed)
-    train_cfg = dataclasses.replace(config, train=trainer_lib.TrainConfig(
-        batch_size=16384, epochs=TRAIN_EPOCHS, lr=1e-3, lr_decay=0.999, early_stop_tol=1e-4))
+    train_cfg = dataclasses.replace(config, train=trainer_lib.TrainConfig(**SF1_TRAIN))
     trained: dict = {}
     real_train = trainer_lib.train
 
@@ -2781,26 +3007,26 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     kp = rng.choice(table.keys, n).astype(np.int32)
     kt = torch.from_numpy(kp).to(dev)
     digits, _ = digits_of(kt)
-    flops_key = flops_per_key(spec)
-    io_k1 = n * (4 + 4 * m + 4) + wbytes + int(words.numel()) * 4 + int(pos_ops.numel()) * 4
-    io_k2 = n * (4 * spec.width + 4 * m) + wbytes
+    # K1: a key in, the codes and the existence bit out, and the words
+    # and position table; K2 (codes): the digits in, the codes out.
+    bound_k1 = mlp_bound(spec, n, 4, 4 * m + 4,
+                         int(words.numel()) * 4 + int(pos_ops.numel()) * 4)
+    bound_k2 = mlp_bound(spec, n, 4 * spec.width, 4 * m)
     kernels = []
-    for name, fn, plain, io, src_line in (
+    for name, fn, plain, bound, src_line in (
         ("fused_lookup",
          lambda: fm.fused_lookup_call(kt, pos_ops, words, flat, spec, 256, base_pad, cap),
          lambda: ref.fused_lookup(kt, pos_ops, words, flat, spec, cap),
-         io_k1, "src/repro/kernels/fused_mlp.py:322"),
+         bound_k1, "src/repro/kernels/fused_mlp.py:322"),
         ("fused_mlp",
          lambda: fm.fused_mlp_call(digits, flat, spec, 256, base_pad, ops.card_pads(spec), True),
          lambda: ref.fused_mlp(digits, flat, spec, True),
-         io_k2, "src/repro/kernels/fused_mlp.py:162"),
+         bound_k2, "src/repro/kernels/fused_mlp.py:162"),
     ):
         plain_a = time_ms(plain)
         ms = time_ms(fn)
         ms_b = time_ms(fn)
         plain_b = time_ms(plain)
-        t_ops = n * flops_key / PEAK_FP32_FLOPS * 1e3
-        t_io = io / PEAK_BYTES_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": "src/repro_torch/csrc/fused_mlp.cu",
             "replaces": src_line, "launches": sum(c[name] for c in paths.values()),
@@ -2809,10 +3035,10 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
                                                 for path, c in paths.items()}}
                if name == "fused_lookup" else {}),
             "max_abs_err": kern_err[name], "ms": min(ms, ms_b),
-            "plain_ms": min(plain_a, plain_b), "bound_ms": max(t_ops, t_io),
-            "bound_by": "operations" if t_ops >= t_io else "bytes", "library_ms": None,
+            "plain_ms": min(plain_a, plain_b), "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None,
             "ms_runs": [ms, ms_b], "plain_ms_runs": [plain_a, plain_b],
-            "flops": n * flops_key, "bytes": io,
+            "flops": bound["flops"], "bytes": bound["bytes"],
         })
     # K3 (k3_times): both entries at one 65,536-key chunk and at its
     # path's largest call, and the launch floor.  The summary's ms,
@@ -2881,7 +3107,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     t0 = time.perf_counter()
     _, _, tstats = store._lookup_with_stats(keys_all[alive])
     wall = time.perf_counter() - t0
-    emit("times", nvidia_smi=smi, keys_per_launch=n, flops_per_key=flops_key,
+    emit("times", nvidia_smi=smi, keys_per_launch=n, flops_per_key=flops_per_key(spec),
          peak_fp32_flops=PEAK_FP32_FLOPS, peak_bytes_per_s=PEAK_BYTES_PER_S,
          kernels=kernels, ms_by_plan=by_plan, wrapper_host=host,
          dense_layer_cublas_ms=dense_ms,

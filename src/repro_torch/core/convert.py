@@ -4,7 +4,9 @@
 same seed, so the tests hand the reference's params (leaves as numpy
 arrays, via ``jax.device_get``) to the port with
 :func:`params_from_numpy`.  :func:`params_to_numpy` is its inverse.
-Both keep the reference tree layout unchanged.
+Both keep the reference tree layout unchanged, and carry any tree of
+dicts and lists the same way: the MHAS weight bank and the controller's
+parameters too.
 """
 
 from __future__ import annotations

@@ -205,17 +205,14 @@ def init_params(spec: MLPSpec, seed: int = 0, device: DeviceLike = None) -> Dict
     return _map_tree(module.tree(), lambda t: t.detach())
 
 
-def _map_tree(tree: Dict, fn) -> Dict:
-    return {
-        "shared": [{k: fn(v) for k, v in layer.items()} for layer in tree["shared"]],
-        "heads": {
-            t: {
-                "hidden": [{k: fn(v) for k, v in layer.items()} for layer in head["hidden"]],
-                "out": {k: fn(v) for k, v in head["out"].items()},
-            }
-            for t, head in tree["heads"].items()
-        },
-    }
+def _map_tree(tree, fn):
+    """``fn`` on every leaf of a tree of dicts and lists, layout kept:
+    a params tree, an MHAS weight bank or a controller's flat dict."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(v, fn) for v in tree]
+    return fn(tree)
 
 
 def _leaves(tree: Dict):

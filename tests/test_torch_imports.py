@@ -194,6 +194,8 @@ def test_module_scan_covers_this_slices_modules():
             "api/federated.py"} <= names
     assert {"serve/__init__.py", "serve/engine.py", "launch/__init__.py",
             "launch/serve.py"} <= names
+    assert {"core/mhas/__init__.py", "core/mhas/search_space.py",
+            "core/mhas/controller.py"} <= names
 
 
 def test_chip_smoke_imports_none_of_the_forbidden_modules():
