@@ -54,7 +54,23 @@ on them against its plain PyTorch version on the card:
                 keys absent; 10,000 inserts/updates/deletes re-checked;
 5. streamed   — the same lookups through the ``fused_streamed`` tier
                 under a forced budget, byte-identical to phase 4;
-6. train      — the same table built with no weights: the store trains
+6. mhas_search — MHAS (Algorithm 2, ``run_mhas``) over the same table
+                under the port's ``PAPER_MHAS`` at the paper's layer
+                sizes (100 to 2,000, depth 2), batches (16,384 and 2,048),
+                8 samples a controller update and learning rates, its
+                iterations (20), controller updates (4) and fine-tune
+                epochs (5) cut for time: the history's length, each
+                entry's parameter count and finite ratio, the best ratio
+                the history's least, the spec and params the best arch's;
+                the split of its seconds (bank steps, scoring, controller
+                updates, fine-tune).  Then the searched store built
+                through ``DeepMappingStore.build`` under ``PAPER_STORE``
+                from the chosen child: every key lossless, absent and
+                out-of-capacity keys absent, the tiers its engine took at
+                build and at lookup, and the path's launches equal to
+                those tiers'; then K1 and K2 on its model against their
+                plain versions, and the bank freed;
+7. train      — the same table built with no weights: the store trains
                 at the paper's width and ``TrainConfig`` (batch 16,384,
                 up to 200 epochs), evaluates T_aux through K2 and answers
                 every key losslessly through K1; a few training steps
@@ -62,14 +78,14 @@ on them against its plain PyTorch version on the card:
                 session: one CUDA kernel a call on contiguous keys, and
                 the call's split (word upload, kernels, wall; its own
                 JSON line, ``bitvector_profile``);
-7. persist    — the trained store saved by the port in the reference's
+8. persist    — the trained store saved by the port in the reference's
                 v2 layout and reopened through ``repro_torch.open``:
                 every SF1 key plus 100,000 absent and 2,000
                 out-of-capacity keys answer byte for byte as before the
                 save and losslessly; a bit flipped in ``vexist.bin``
                 raises ``IntegrityError``; save, load and first-lookup
                 seconds and each artifact's bytes;
-8. query      — nine plans through ``store.query()`` on the reopened
+9. query      — nine plans through ``store.query()`` on the reopened
                 store (a projected ``where_keys`` on 65,536 keys, a
                 ``scan`` with a ``where`` conjunction on two heads, a
                 ``where_range``, a count-only ``group_by``, a self-join
@@ -83,12 +99,17 @@ on them against its plain PyTorch version on the card:
                 main store after its mutations.  K1 must run with
                 predicate tables and every ``where`` plan must report
                 ``kernel_filtered``;
-9. cluster    — the reference's default cluster (``ClusterConfig()``:
+10. cluster   — the reference's default cluster (``ClusterConfig()``:
                 4 range shards) over the same SF1 table, every shard
                 trained on the card with the train phase's config through
-                ``repro_torch.build(..., cluster=...)`` in a thread pool:
-                every key, absent and out-of-capacity keys through
-                ``lookup`` (serial) and a ``where_keys`` plan (fan-out),
+                ``repro_torch.build(..., cluster=...)``, one shard at a
+                time (cut for time), then served under the default
+                config; the default build (shards on four threads at
+                once) over a 187,500-row prefix, every key looked up, and
+                each of its shards' T_aux rows found again through K2 on
+                one thread and on four at once, equal to the build's
+                (after the path's counts); every key, absent and
+                out-of-capacity keys through ``lookup`` (serial) and a ``where_keys`` plan (fan-out),
                 byte-identical to each other and on present rows to the
                 single store; the query phase's nine plans against their
                 oracles and ``pushdown(False)``; 10,000 mutations in the
@@ -101,7 +122,7 @@ on them against its plain PyTorch version on the card:
                 ``aux.msgpack`` refused, then quarantined with the healthy
                 shards serving.  Every plan without an injected fault
                 retries nothing;
-10. serve     — the batched ``LookupServer`` over the train phase's
+11. serve     — the batched ``LookupServer`` over the train phase's
                 store and the cluster (after its mutations): 2,048
                 requests of 1 to 4,096 keys (log-uniform), Zipf-skewed
                 (s = 1.1) over the present keys with 5% absent and 1%
@@ -123,7 +144,7 @@ on them against its plain PyTorch version on the card:
                 reopens the save and serves again; every request found,
                 the store lossless.  The path's launches are read before
                 the checks that look keys up outside the servers;
-11. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
+12. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
                 rows under the reference benchmark's DM-R config,
                 trained on the card through ``repro_torch.build``: every
                 key lossless, absent and out-of-capacity keys absent; the
@@ -134,7 +155,7 @@ on them against its plain PyTorch version on the card:
                 through ``repro_torch.open`` with the same answers; K1
                 (with and without predicate tables) and K2 on the store's
                 model and residue features against their plain versions;
-12. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
+13. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
                 under DM-R (20 epochs, cut for time), with two key
                 choices: (key, credit rating),
                 whose packed domain fits int32 (K1), and (key, purchase
@@ -142,7 +163,7 @@ on them against its plain PyTorch version on the card:
                 lossless on every row, unknown combinations absent; each
                 choice's kernel on its store's model against its plain
                 version;
-13. baselines — every AB/HB factory of the paper (§V-A3) on
+14. baselines — every AB/HB factory of the paper (§V-A3) on
                 ``customer_demographics`` (HBC-L on its first 960,400
                 rows, cut for time) and on SF1 ``orders``: exact on
                 100,000 present and 50,000 absent keys, saved, reopened
@@ -152,11 +173,11 @@ on them against its plain PyTorch version on the card:
                 stores probed the same way.  Baselines are host code:
                 they build in a pool of spawned workers (never forked
                 from the process that holds the CUDA context), one per
-                core but two, started before phase 11 and running beside
-                phases 11 and 12; a hash store's reopened lookup is timed
+                core but two, started before phase 12 and running beside
+                phases 12 and 13; a hash store's reopened lookup is timed
                 in its worker, an array store's in the main process once
                 at most one worker is left (and again alone if one was);
-14. times     — kernel and plain-version times with CUDA events, the
+15. times     — kernel and plain-version times with CUDA events, the
                 kernels' bounds, K3's two instantiations at 65,536 keys
                 and at its largest call (one launch, a run of 100, L2
                 flushed) beside the launch floor, K1/K2 under each plan
@@ -166,12 +187,13 @@ on them against its plain PyTorch version on the card:
 
 Each kernel's launches are counted on every path that drives the port
 (the MHAS children of phase 2 through K2 as path ``mhas`` and through
-their engines as ``mhas_engine``, and phases 3 to 13), with
+their engines as ``mhas_engine``, and phases 3 to 14, the search
+and its store as ``mhas_search``), with
 the counts set to 0 just before each path and read just after; K1's
 launches that carried predicate tables are counted apart.  The launches
 made to compare a kernel with its plain version (the rest of phase 2,
-and in phases 11 and 12 after their counts are read) and those of phase
-14 do not count.
+and in phases 6, 12 and 13 after their counts are read) and those of
+phase 15 do not count.
 Each phase prints one JSON line with its seconds (``phase_s``); any
 failed check raises (non-zero exit).  The last lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -205,6 +227,7 @@ import sys
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -231,14 +254,6 @@ L2_FLUSH_BYTES = 256 * 2**20
 K3_BIG_SLOTS, K3_BIG_SET = 10**8, 1_500_000
 #: TPC-H ``orders`` rows at scale factor 1.
 ROWS = 1_500_000
-#: The paper's epoch cap (``PAPER_STORE``'s TrainConfig); training may
-#: stop earlier on |Δloss| < 1e-4.
-TRAIN_EPOCHS = 200
-#: The SF1 store's layers (the paper's store config) and the
-#: ``TrainConfig`` it trains with in the ``train`` phase.
-SF1_LAYERS = {"shared": (256, 256), "private": (64,)}
-SF1_TRAIN = {"batch_size": 16384, "epochs": TRAIN_EPOCHS, "lr": 1e-3, "lr_decay": 0.999,
-             "early_stop_tol": 1e-4}
 #: The reference benchmark's DM-R store (``benchmarks/common.py``): a
 #: smaller trunk, and residue features for the periods found at build;
 #: its TrainConfig is 60 epochs at batch 8,192 (early stop as default).
@@ -273,6 +288,11 @@ SERVE_ZIPF, SERVE_ABSENT, SERVE_OUT_CAP = 1.1, 0.05, 0.01
 SERVE_BIG_CALL, SERVE_FAULT_CALLS = 40, 4
 #: Requests of the launcher's runs (of 1,000 keys each, its default).
 LAUNCH_REQUESTS = 100
+#: The cluster phase's build under the default ``ClusterConfig()`` (the
+#: shards trained at once on the build pool's threads): a prefix of the
+#: SF1 ``orders`` table and an epoch cap, cut for the smoke's time (the
+#: SF1 cluster itself trains one shard at a time).
+CL_THREADED_ROWS, CL_THREADED_EPOCHS = 187_500, 20
 #: The kernels phase's MHAS check: SF1 keys run through every child, the
 #: children the controller samples (beside the four fixed ones), and the
 #: tolerance of the masked forward against K2 on the extracted child: a
@@ -282,8 +302,19 @@ LAUNCH_REQUESTS = 100
 #: below twice it.
 MHAS_KEYS, MHAS_SAMPLED = 16_384, 4
 MHAS_TOL = 1e-4
+#: The mhas_search phase runs the port's ``PAPER_MHAS`` at the paper's
+#: layer sizes, depth, batches, samples and learning rates, with three
+#: cuts of its budget for the smoke's time: the iterations
+#: (``total_iters`` = ``model_iters``, 2,000 in ``PAPER_MHAS``), the
+#: controller updates (40 there; four, one every fifth iteration, so that
+#: REINFORCE moves the controller at least twice, against an EMA
+#: baseline, unless the early stop ends the loop before the tenth), and
+#: the fine-tune's epochs (``MHASConfig``'s 30; its early stop kept).
+MHAS_SEARCH_ITERS, MHAS_CTRL_ITERS, MHAS_FINETUNE_EPOCHS = 20, 4, 5
 
 RECORD: dict = {}
+
+
 #: perf_counter at the end of the previous phase (the script's start for
 #: the first).
 _PHASE_T0 = [time.perf_counter()]
@@ -886,6 +917,208 @@ def mhas_engine_check(served, encoder, keys, dev) -> list:
     return rows
 
 
+class CallTimer:
+    """Wraps functions looked up through their modules at call time
+    (``(module, name)`` pairs): each call is timed between two device
+    syncs and counted; ``with`` restores them."""
+
+    def __init__(self, targets, sync):
+        self.targets, self.sync = targets, sync
+        self.seconds = {t[1]: 0.0 for t in targets}
+        self.calls = {t[1]: 0 for t in targets}
+        self.results: dict = {t[1]: [] for t in targets}
+
+    def _wrap(self, name, fn, keep):
+        def timed(*a, **kw):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.sync()
+            self.seconds[name] += time.perf_counter() - t0
+            self.calls[name] += 1
+            if keep:
+                self.results[name].append(keep(out))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name, *keep in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._wrap(name, fn, keep[0] if keep else None))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def mhas_search_phase(table, absent, out_cap, dev, seed: int, read_launches) -> tuple:
+    """``run_mhas`` over ``table`` under the port's ``PAPER_MHAS`` with
+    the cuts above, then the searched store built from its spec and
+    params through ``DeepMappingStore.build`` under ``PAPER_STORE`` (T_aux
+    corrects the model through the tier its engine picks) and every key
+    of ``table``, the ``absent`` and the ``out_cap`` keys looked up.
+
+    Checks the search's contracts: the history holds one entry per model
+    iteration run and ``controller_samples`` per controller update; each
+    entry's ``child_params`` is the sampled arch's and its ratio finite;
+    ``best_ratio`` is the history's least; the spec is the best arch's
+    and the params have its shapes.  The store: lossless, the absent and
+    out-of-capacity keys absent, the kernels' launches those of the
+    tiers its engine took (``read_launches``: counts since the caller
+    zeroed them, just before this call).  Returns the record of the
+    phase's JSON line, the launches and the store."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.deepmapping_paper import PAPER_MHAS, PAPER_STORE
+    from repro_torch.core import DeepMappingStore
+    from repro_torch.core import trainer as trainer_lib
+    from repro_torch.core.mhas import controller, search
+    from repro_torch.core.model import _leaves, init_params
+
+    cfg = dataclasses.replace(
+        PAPER_MHAS, total_iters=MHAS_SEARCH_ITERS, model_iters=MHAS_SEARCH_ITERS,
+        controller_iters=MHAS_CTRL_ITERS, finetune_epochs=MHAS_FINETUNE_EPOCHS, seed=seed)
+    reduced = {"total_iters": [MHAS_SEARCH_ITERS, PAPER_MHAS.total_iters],
+               "model_iters": [MHAS_SEARCH_ITERS, PAPER_MHAS.model_iters],
+               "controller_iters": [MHAS_CTRL_ITERS, PAPER_MHAS.controller_iters],
+               "finetune_epochs": [MHAS_FINETUNE_EPOCHS, PAPER_MHAS.finetune_epochs]}
+    timer = CallTimer([(search, "_bank_step"), (search, "_child_errors"),
+                       (controller, "sample_arch", lambda out: out[0].cpu().numpy()),
+                       (search, "_controller_update"),
+                       (trainer_lib, "train", lambda out: (out[2], int(out[1].step)))],
+                      torch.cuda.synchronize)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with timer:
+        res = search.run_mhas(table, cfg, device=dev)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated() - mem_before
+    space = res.space
+
+    # The search's contracts.
+    model_iters_run = timer.calls["_bank_step"] // cfg.model_epochs_per_iter
+    ctrl_updates = timer.calls["_controller_update"]
+    hist = res.history
+    check(timer.calls["_bank_step"] == model_iters_run * cfg.model_epochs_per_iter,
+          "mhas_search: a model iteration ran a partial epoch count")
+    # Every iteration trains the bank (total_iters == model_iters) and
+    # every ctrl_every-th then updates the controller, unless the early
+    # stop broke the loop at that iteration, the last one run.
+    ctrl_every = max(1, cfg.total_iters // max(1, cfg.controller_iters))
+    check((model_iters_run - 1) // ctrl_every <= ctrl_updates <= model_iters_run // ctrl_every,
+          f"mhas_search: {ctrl_updates} controller updates after {model_iters_run} model "
+          f"iterations, one due every {ctrl_every}")
+    check(len(hist) == model_iters_run + ctrl_updates * cfg.controller_samples,
+          f"mhas_search: {len(hist)} history entries for {model_iters_run} model iterations "
+          f"and {ctrl_updates} controller updates")
+    sampled = [space.tokens_to_arch(t) for t in timer.results["sample_arch"]]
+    check(len(sampled) >= len(hist), "mhas_search: fewer samples than history entries")
+    for i, h in enumerate(hist):
+        check(h["child_params"] == space.child_num_params(sampled[i]),
+              f"mhas_search: history entry {i}'s child_params is not its arch's")
+        check(bool(np.isfinite(h["ratio"])) and 0.0 <= h["err"] <= 1.0,
+              f"mhas_search: history entry {i}: ratio {h['ratio']}, err {h['err']}")
+    ratios = [h["ratio"] for h in hist]
+    check(not hist or res.best_ratio == min(ratios),
+          "mhas_search: best_ratio is not the least ratio of the history")
+    check(res.spec == space.child_spec(res.best_arch), "mhas_search: the spec is not the best arch's")
+    want_shapes = [tuple(t.shape) for t in _leaves(init_params(res.spec, device=dev))]
+    got = list(_leaves(res.params))
+    check([tuple(t.shape) for t in got] == want_shapes
+          and all(t.device.type == dev.type and t.dtype == torch.float32 for t in got),
+          "mhas_search: the params are not the spec's fp32 shapes on the card")
+    ft_hist, ft_steps = timer.results["train"][0]
+    check(len(ft_hist) > 0 and all(np.isfinite(ft_hist)), "mhas_search: the fine-tune's losses")
+    q = max(1, len(ratios) // 4)
+    arch = res.best_arch
+    chosen = {"trunk": [int(x) for x in arch["trunk_sizes"][: arch["trunk_depth"]]],
+              "heads": {t: [int(x) for x in h["sizes"][: h["depth"]]]
+                        for t, h in arch["heads"].items()},
+              "child_num_params": space.child_num_params(arch)}
+
+    # The searched store, built and looked up through its engine's tiers.
+    tiers = ("fused_calls", "fused_streamed_calls", "pallas_calls", "jit_calls")
+    t0 = time.perf_counter()
+    store = DeepMappingStore.build(table, PAPER_STORE, spec=res.spec, params=res.params,
+                                   device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    st = store.engine.stats
+    at_build = {k: getattr(st, k) for k in tiers}
+    t0 = time.perf_counter()
+    vals, exists, ls = store._lookup_with_stats(table.keys)
+    lookup_s = time.perf_counter() - t0
+    check(bool(exists.all()), "mhas_search: a present key of the searched store reads as absent")
+    for c, col in table.columns.items():
+        check(np.array_equal(vals[c], col), f"mhas_search: column {c} is not lossless")
+    check(not store.lookup(absent)[1].any(), "mhas_search: an absent key reads as present")
+    check(not store.lookup(out_cap)[1].any(), "mhas_search: an out-of-capacity key reads present")
+    at_lookup = {k: getattr(st, k) - at_build[k] for k in tiers}
+    launches = read_launches()
+    entry = store.engine._entry(res.spec.tasks)
+    plan = store.engine._streamed_plan(entry, True)
+    pages = len(plan[0]) if plan is not None and at_build["fused_streamed_calls"] + \
+        at_lookup["fused_streamed_calls"] else 0
+    total = {k: at_build[k] + at_lookup[k] for k in tiers}
+    want = {"fused_mlp": total["pallas_calls"],
+            "fused_lookup": total["fused_calls"] + pages * total["fused_streamed_calls"],
+            "bitvector": 0}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"mhas_search: launches {launches} are not the tiers' {want}")
+
+    def tier(counts):
+        names = {"fused_calls": "fused", "fused_streamed_calls": "fused_streamed",
+                 "pallas_calls": "pallas_digits", "jit_calls": "jit"}
+        return [names[k] for k in tiers if counts[k]]
+
+    mw = space.max_width
+    bank_bytes = 4 * ((1 + len(space.tasks)) * space.max_layers * (mw * mw + mw)
+                      + sum(mw * c + c for c in space.out_cards))
+    rec = {
+        "config": {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)},
+        "max_width": mw, "bank_bytes": bank_bytes,
+        "reduced": reduced, "rows": table.num_rows,
+        "search_s": search_s, "peak_device_bytes": peak_bytes,
+        "split_s": {"bank_steps": timer.seconds["_bank_step"],
+                    "scoring": timer.seconds["sample_arch"] + timer.seconds["_child_errors"],
+                    "controller_updates": timer.seconds["_controller_update"],
+                    "finetune": timer.seconds["train"],
+                    "other": search_s - sum(timer.seconds.values())},
+        "bank_steps": timer.calls["_bank_step"],
+        "bank_steps_per_s": timer.calls["_bank_step"] / timer.seconds["_bank_step"],
+        "scored_samples": timer.calls["_child_errors"], "model_iters_run": model_iters_run,
+        "early_stop_at_iter": model_iters_run if model_iters_run < cfg.total_iters else None,
+        "controller_updates": ctrl_updates, "controller_every": ctrl_every,
+        "history_len": len(hist),
+        "finetune": {"epochs": len(ft_hist), "steps": ft_steps, "losses": ft_hist,
+                     "early_stopped": len(ft_hist) < cfg.finetune_epochs},
+        "chosen": chosen, "spec": {"shared": list(res.spec.shared),
+                                   "private": {t: list(p) for t, p in res.spec.private}},
+        "best_ratio": res.best_ratio,
+        "first_quartile_ratio": sum(ratios[:q]) / q, "last_quartile_ratio": sum(ratios[-q:]) / q,
+        "history": hist,
+        "store": {"build_s": build_s, "memorized_fraction": store.memorized_fraction(),
+                  "aux_rows": store.aux.num_rows, "compression_ratio": store.compression_ratio(),
+                  "size_breakdown": store.size_breakdown(),
+                  "tier_at_build": tier(at_build), "tier_at_lookup": tier(at_lookup),
+                  "stats_at_build": at_build, "stats_at_lookup": at_lookup,
+                  "streamed_pages": pages,
+                  "lookup": {"keys": table.num_rows, "wall_s": lookup_s,
+                             "keys_per_s": table.num_rows / lookup_s, "infer_s": ls.infer_s,
+                             "aux_s": ls.aux_s, "decode_s": ls.decode_s},
+                  "absent_checked": int(absent.size),
+                  "out_of_capacity_checked": int(out_cap.size)},
+    }
+    return rec, launches, store
+
+
 def baseline_table(name: str, seed: int):
     """The baselines phase's tables: TPC-DS ``customer_demographics`` in
     full and its first HBCL_CD_ROWS rows, and TPC-H ``orders`` at SF1
@@ -1330,7 +1563,10 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     from repro_torch import obs, storage
     from repro_torch.api import FederatedStore, execute_plans
     from repro_torch.baselines import BASELINE_FACTORIES
-    from repro_torch.cluster import ClusterConfig, plan_range_partitions
+    from repro_torch.cluster import (
+        ClusterConfig, ShardedDeepMappingStore, plan_range_partitions,
+    )
+    from repro_torch.configs.deepmapping_paper import PAPER_STORE
     from repro_torch.core import (
         BitVector, DeepMappingConfig, DeepMappingStore, InferenceEngine, KeyEncoder,
         MLPSpec, Table, init_params,
@@ -1399,9 +1635,8 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
 
     # The slice's full width: TPC-H orders at SF1, the paper's store.
     table = orders_like(ROWS, seed=args.seed)
-    config = DeepMappingConfig(
-        base=10, codec="zstd", partition_bytes=4 * 1024 * 1024, **SF1_LAYERS,
-    )
+    config = PAPER_STORE
+    train_epochs = config.train.epochs
     encoder = KeyEncoder(table.max_key, base=config.base)
     codecs = build_codecs(table.columns)
     spec = MLPSpec(
@@ -1662,14 +1897,17 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     emit("mhas_space", launches=paths["mhas"], engine=engine_rows,
          engine_launches=paths["mhas_engine"], **mhas)
 
-    def store_kernels_vs_plain(s, keys):
+    def store_kernels_vs_plain(s, keys, draw=None):
         """K1 (where the store's key domain fits int32) and K2 on a trained
         store's own weights, spec and key features (residue positions
         included), on its first 256 and 65,536 ``keys``, against their
         plain versions by the rule above: K1 with no predicate tables and
         with one per head (up to ``ref.MAX_PREDS``), K2 codes and logits,
         K1 codes equal to K2's.  Comparison launches: the correlated and
-        multikey phases call this after reading their paths' counts."""
+        multikey phases call this after reading their paths' counts.  The
+        predicate tables are drawn from ``draw`` (the phases' ``rng`` by
+        default)."""
+        draw = rng if draw is None else draw
         eng = s.engine
         mspec = s.spec
         mflat, _ = eng._entry(mspec.tasks).flat()
@@ -1702,7 +1940,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
             if keys_in:
                 mpos, mwords = eng._device_pos_ops(), eng._device_words()
                 tabs = tuple(
-                    torch.from_numpy((rng.random(ops._round_up(mspec.card_map[t], ops.LANE))
+                    torch.from_numpy((draw.random(ops._round_up(mspec.card_map[t], ops.LANE))
                                       < 0.5).astype(np.int32)).to(dev)
                     for t in mspec.tasks[:ref.MAX_PREDS])
                 for ptabs in ((), tabs):
@@ -1914,12 +2152,39 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          pages_with_exists=plan[1], fused_streamed_calls=streamed.stats.fused_streamed_calls,
          fused_lookup_launches=paths["streamed"]["fused_lookup"])
 
-    # --------------------------------------------------------- 6. train
+    # --------------------------------------------------- 6. mhas_search
+    # MHAS (Algorithm 2) over this table at the paper's layer widths
+    # (PAPER_MHAS, its iterations cut), then the searched store built
+    # from the chosen child and looked up: its launches count on a path
+    # of their own, equal to the tiers its engine took.  Then K1 and K2
+    # on the searched store's model against their plain versions
+    # (comparison launches, after the count is read).  The phase draws
+    # from generators of its own, so later phases draw as they did.
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    reset_launches()
+    search_rec, paths["mhas_search"], sstore = mhas_search_phase(
+        table, absent, out_cap, dev, args.seed, read_launches)
+    srng = np.random.default_rng([args.seed, 6])
+    s_edges = np.array([-1, 0, table.max_key, cap - 1, cap, 2**31 - 1], dtype=np.int64)
+    search_kernels = store_kernels_vs_plain(sstore, np.concatenate([
+        s_edges, srng.permutation(np.concatenate([
+            srng.choice(table.keys, 61_440, replace=False),
+            absent[: 65_536 - 61_440 - s_edges.size]]))]), draw=srng)
+    del sstore
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - mem_before
+    check(held < search_rec["bank_bytes"], f"mhas_search: {held} bytes still held on the "
+          f"card after the phase, as much as the weight bank")
+    emit("mhas_search", **search_rec, launches=paths["mhas_search"],
+         kernels_vs_plain=search_kernels, device_bytes_held_after=held)
+
+    # --------------------------------------------------------- 7. train
     # build() with no weights trains (the paper's TrainConfig), then
     # evaluates T_aux through K2 and serves through K1.  The trainer is
     # wrapped only to read its loss history and time it.
     train_table = orders_like(ROWS, seed=args.seed)
-    train_cfg = dataclasses.replace(config, train=trainer_lib.TrainConfig(**SF1_TRAIN))
+    train_cfg = config
     trained: dict = {}
     real_train = trainer_lib.train
 
@@ -1999,12 +2264,12 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
         "top_kernels_ms_per_step": [(k[:90], v / prof_steps) for k, v in top],
     }
     emit(
-        "train", rows=train_table.num_rows, epochs_max=TRAIN_EPOCHS, epochs_run=len(hist),
+        "train", rows=train_table.num_rows, epochs_max=train_epochs, epochs_run=len(hist),
         steps=trained["steps"], train_s=trained["seconds"],
         s_per_epoch=trained["seconds"] / len(hist),
         steps_per_s=trained["steps"] / trained["seconds"],
         first_loss=hist[0], last_loss=hist[-1], history=hist,
-        early_stopped=len(hist) < TRAIN_EPOCHS,
+        early_stopped=len(hist) < train_epochs,
         memorized_fraction=tstore.memorized_fraction(), aux_rows=tstore.aux.num_rows,
         compression_ratio=tstore.compression_ratio(), size_breakdown=tstore.size_breakdown(),
         build_s=tbuild_s, build_launches=tbuild_launches, launches=train_launches,
@@ -2021,7 +2286,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
         check(len(got_k) == want and "bitvector_kernel" in got_k[-1],
               f"bitvector_test on {label} keys ran {got_k}, not {want} kernel(s) ending in K3")
 
-    # ------------------------------------------------------- 7. persist
+    # ------------------------------------------------------- 8. persist
     # The trained store saved by the port in the reference's v2 layout
     # and reopened through repro_torch.open, onto the card: every SF1
     # key plus the absent and out-of-capacity keys answer byte for byte
@@ -2080,7 +2345,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          aux_codec=loaded.config.codec + ("" if storage.HAVE_ZSTD else " (zlib fallback)"),
          integrity_error=integrity_error, launches=persist_launches)
 
-    # --------------------------------------------------------- 8. query
+    # --------------------------------------------------------- 9. query
     # Plans through store.query() on the reopened SF1 store, each held
     # against a numpy oracle over the source table and byte for byte
     # against pushdown(False); the where plans again on the main store
@@ -2305,14 +2570,21 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          point_keys=int(qk.size), range=[lo, hi], launches=query_launches)
     del loaded
 
-    # ------------------------------------------------------- 9. cluster
+    # ------------------------------------------------------ 10. cluster
     # The reference's default cluster (ClusterConfig(): 4 range shards,
     # the 4 that benchmarks/bench_shards.py runs) over the SF1 orders
     # table, every shard trained on the card with the train phase's
     # PAPER_STORE config through repro_torch.build(..., cluster=...).
-    # The shards train in a thread pool, so K2 launches from several
-    # host threads at once; lookups and plans visit the shards on the
-    # fan-out pool.  Checked: every key, absent and out-of-capacity key
+    # The shards train one at a time (a build pool of one thread, cut for
+    # the smoke's time: four threads on one card train more slowly
+    # together than one alone), and the cluster then serves under the
+    # default config, so lookups and plans visit the shards on the
+    # fan-out pool.  The default build, its shards trained on four
+    # threads at once, runs over a prefix of the table (every key looked
+    # up); after the path's counts are read, each of its shards' T_aux
+    # rows is found again through K2 on one thread and on four threads
+    # at once, equal to each other and to the build's.
+    # Checked: every key, absent and out-of-capacity key
     # through lookup (serial) and a where_keys plan (fan-out), the two
     # byte-identical and, on present rows, equal to the train phase's
     # single store; the query phase's plans; 10,000 mutations at the
@@ -2385,9 +2657,35 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     single = tstore.lookup(cl_probe)
     retries_0 = retries_total()
     reset_launches()
-    cluster, cl_build_s = hooked(
-        lambda: repro_torch.build(train_table, cl_cfg, cluster=cl_config, device=dev))
+    built, cl_build_s = hooked(lambda: repro_torch.build(
+        train_table, cl_cfg, cluster=dataclasses.replace(cl_config, max_workers=1), device=dev))
     cl_build_launches = read_launches()
+    cluster = ShardedDeepMappingStore(built.partitioner, built.shards, cl_config, built.pool)
+    del built
+    # The default build (ClusterConfig(): the shards train, and evaluate
+    # their T_aux through K2, on the build pool's threads at once) over a
+    # prefix of the table, every key looked up.
+    thr_table = Table(keys=train_table.keys[:CL_THREADED_ROWS],
+                      columns={c: col[:CL_THREADED_ROWS] for c, col in train_table.columns.items()})
+    thr_cfg = dataclasses.replace(
+        cl_cfg, train=dataclasses.replace(cl_cfg.train, epochs=CL_THREADED_EPOCHS))
+    before = read_launches()
+    t0 = time.perf_counter()
+    threaded = repro_torch.build(thr_table, thr_cfg, cluster=cl_config, device=dev)
+    torch.cuda.synchronize()
+    thr_build_s = time.perf_counter() - t0
+    thr_launches = {k: v - before[k] for k, v in read_launches().items()}
+    check(threaded.num_shards == 4 and cl_config.max_workers != 1
+          and thr_launches["fused_mlp"] >= threaded.num_shards,
+          "cluster: the default build did not evaluate each shard's T_aux through K2")
+    thr_probe = np.concatenate([thr_table.keys, absent])
+    thr_v, thr_e = threaded.lookup(thr_probe)
+    check(bool(thr_e[:CL_THREADED_ROWS].all()) and not thr_e[CL_THREADED_ROWS:].any(),
+          "cluster: the default build: a present key reads absent, or an absent one present")
+    for c, col in thr_table.columns.items():
+        check(np.array_equal(thr_v[c][:CL_THREADED_ROWS], col),
+              f"cluster: the default build: column {c} is not lossless")
+    del thr_v, thr_e
     build_recs = dict(sorted(shard_recs.items()))
     shard_recs.clear()
     check(cluster.num_shards == 4 and sorted(build_recs) == [0, 1, 2, 3],
@@ -2629,11 +2927,46 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
           and cl_launches["fused_mlp"] > 0, "cluster: K1 (with predicate tables) or K2 missing")
     cl_st = cluster.engines.stats
     check(cl_st.fused_calls > 0 and cl_st.jit_calls == 0, "cluster: a shard left the fused tier")
+
+    # After the counts: each shard of the default build has its T_aux
+    # rows found again through its engine (K2 on host digits), on one
+    # thread and then on four at once; both equal the build's.
+    thr_owner = threaded.partitioner.shard_of(thr_table.keys)
+
+    def shard_mask(i):
+        s = threaded.shards[i]
+        codes = np.stack([s.codecs[t].codes for t in s.spec.tasks], axis=1)
+        return real_eval(s.engine, thr_table.keys[thr_owner == i], codes)
+
+    t0 = time.perf_counter()
+    serial_masks = [shard_mask(i) for i in range(threaded.num_shards)]
+    serial_mask_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=threaded.num_shards) as ex:
+        threaded_masks = list(ex.map(shard_mask, range(threaded.num_shards)))
+    threaded_mask_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(serial_masks, threaded_masks)):
+        check(a.tobytes() == b.tobytes(), f"cluster: shard {i}'s T_aux rows differ when K2 "
+              f"runs on four threads at once")
+        check(int(a.sum()) == threaded.shards[i].aux.num_rows,
+              f"cluster: shard {i}'s T_aux rows found again are not its build's")
+    thr_rec = {"rows": CL_THREADED_ROWS, "epochs_cap": CL_THREADED_EPOCHS,
+               "max_workers": cl_config.max_workers, "build_s": thr_build_s,
+               "launches": thr_launches,
+               "shards": [{"rows": s.num_rows, "aux_rows": s.aux.num_rows,
+                           "memorized_fraction": s.memorized_fraction()}
+                          for s in threaded.shards],
+               "t_aux_found_again_s": {"one_thread": serial_mask_s,
+                                       "four_threads": threaded_mask_s}}
+    threaded.close()
+    del serial_masks, threaded_masks, threaded
     emit("cluster", rows=n_tr, config={"num_shards": cl_config.num_shards,
                                        "policy": cl_config.policy,
                                        "max_workers": cl_config.max_workers,
+                                       "build_workers": 1,
                                        "retrain_after_modified_bytes": 1},
          boundaries=cluster.partitioner.boundaries.tolist(), build_s=cl_build_s,
+         default_build=thr_rec,
          shards=cl_shards, memorized_fraction=cluster.memorized_fraction(),
          aux_rows=sum(s.aux.num_rows for s in cluster.shards),
          compression_ratio=cluster.compression_ratio(), size_bytes=cluster.size_bytes(),
@@ -2658,7 +2991,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          launches=cl_launches)
     del rep, part, ab, rres, pres, fres, ores, qres, live_want
 
-    # --------------------------------------------------------- 10. serve
+    # --------------------------------------------------------- 11. serve
     # The batched LookupServer over the train phase's single store and
     # the cluster (as the cluster phase left it), then the launcher; host
     # times here are taken before the baseline pool starts.
@@ -2681,7 +3014,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     cluster.close()
     del cluster
 
-    # The baseline pool (phase 13's stores) starts here, beside the
+    # The baseline pool (phase 14's stores) starts here, beside the
     # correlated and multikey phases, on all cores but two: a training
     # step there is launch-bound on one core.  Spawned workers, never
     # forked from this process, which holds a CUDA context.
@@ -2696,7 +3029,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     bl_jobs = [bl_pool.apply_async(baseline_job, (t, f, args.seed, str(bl_dir)))
                for t, f in BASELINE_JOBS]
 
-    # --------------------------------------------------- 11. correlated
+    # --------------------------------------------------- 12. correlated
     # TPC-DS customer_demographics at its full 1,920,800 rows (every
     # column a periodic function of the key) under the reference
     # benchmark's DM-R config, built with repro_torch.build on the card:
@@ -2832,7 +3165,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          build_launches=cd_build_launches, launches=cd_launches,
          kernels_vs_plain=cd_kernels)
 
-    # ------------------------------------------------------ 12. multikey
+    # ------------------------------------------------------ 13. multikey
     # MultiKeyMapping over a customer_demographics prefix under DM-R, two
     # key choices: (key, credit rating) packs into int32 and serves
     # through K1; (key, purchase estimate) packs past int32 (raw integers
@@ -2911,10 +3244,10 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          build_launches=mk_build_launches, size_bytes=mk.size_bytes(), launches=mk_launches)
     del mk
 
-    # ----------------------------------------------------- 13. baselines
+    # ----------------------------------------------------- 14. baselines
     # Every AB/HB factory on customer_demographics and on SF1 orders,
     # built, checked, saved, bit-flipped and reopened by the pool started
-    # before phase 11; the hash stores' reopened lookups are timed in
+    # before phase 12; the hash stores' reopened lookups are timed in
     # their workers (about 15,000-40,000 keys/s, a core's work either
     # way).  Each array store's saved file is reopened here through
     # repro_torch.open and its lookup timed as the DeepMapping stores'
@@ -3002,7 +3335,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          deepmapping=dm_rows, launches=paths["baselines"])
     del cd_store
 
-    # -------------------------------------------------------- 14. times
+    # -------------------------------------------------------- 15. times
     n = 65536
     kp = rng.choice(table.keys, n).astype(np.int32)
     kt = torch.from_numpy(kp).to(dev)

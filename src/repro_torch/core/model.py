@@ -215,19 +215,23 @@ def _map_tree(tree, fn):
     return fn(tree)
 
 
-def _leaves(tree: Dict):
-    for layer in tree["shared"]:
-        yield layer["w"]
-        yield layer["b"]
-    for head in tree["heads"].values():
-        for layer in head["hidden"]:
-            yield layer["w"]
-            yield layer["b"]
-        yield head["out"]["w"]
-        yield head["out"]["b"]
+def _leaves(tree):
+    """Every leaf of a tree of dicts and lists (a params tree, an MHAS
+    weight bank or a controller's flat dict), depth first, dict keys in
+    sorted order as ``jax.tree_util`` takes them: two trees of one layout
+    give their leaves in one order, whatever order their dicts were
+    built in."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
-def _with_leaves(tree: Dict, values) -> Dict:
+def _with_leaves(tree, values):
     """A tree of ``tree``'s layout whose leaves are ``values``, given in
     :func:`_leaves` order."""
     index = {id(t): v for t, v in zip(_leaves(tree), values, strict=True)}

@@ -11,7 +11,9 @@ answers.  These are the cases of ``test_baselines.py`` and the baseline
 cases of ``test_integrity.py``; no tolerance applies anywhere.
 """
 
+import gzip
 import os
+import types
 
 import msgpack
 import numpy as np
@@ -79,9 +81,18 @@ def string_tables():
     return j_orders_like(n=2000), orders_like(n=2000)
 
 
+@pytest.fixture
+def frozen_gzip_clock(monkeypatch):
+    """``gzip.compress`` writes the current second into each member's
+    header (both packages' ``gzip`` codec calls it), so two stores
+    compressed on either side of a second would differ in those bytes:
+    the clock ``gzip`` reads stands still for the test."""
+    monkeypatch.setattr(gzip, "time", types.SimpleNamespace(time=lambda: 1_700_000_000.0))
+
+
 class TestBaselineStores:
     @pytest.mark.parametrize("name", sorted(BASELINE_FACTORIES))
-    def test_exact_lookup_all(self, name, table, jtable, tmp_path):
+    def test_exact_lookup_all(self, name, table, jtable, tmp_path, frozen_gzip_clock):
         store = BASELINE_FACTORIES[name](table, partition_bytes=4096)
         ref = J_FACTORIES[name](jtable, partition_bytes=4096)
         step = max(1, table.num_rows // 500)

@@ -196,6 +196,8 @@ def test_module_scan_covers_this_slices_modules():
             "launch/serve.py"} <= names
     assert {"core/mhas/__init__.py", "core/mhas/search_space.py",
             "core/mhas/controller.py"} <= names
+    assert {"core/mhas/search.py", "configs/__init__.py",
+            "configs/deepmapping_paper.py"} <= names
 
 
 def test_chip_smoke_imports_none_of_the_forbidden_modules():

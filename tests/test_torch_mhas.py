@@ -517,6 +517,18 @@ class TestDeviceDefaults:
             with pytest.raises(RuntimeError, match="CUDA"):
                 call()
 
+    def test_search_defaults_to_cuda(self, no_cuda):
+        """``run_mhas`` resolves its device before any work: no bank, no
+        controller and no fine-tune on the CPU unless asked for."""
+        from repro_torch.core.mhas import MHASConfig, run_mhas
+        from repro_torch.data import synthetic_multi_column
+
+        table = synthetic_multi_column(n=200, correlation="high", cardinalities=(3, 4), seed=0)
+        cfg = MHASConfig(layer_sizes=(8,), total_iters=1, model_iters=1, finetune_epochs=1)
+        for call in (lambda: run_mhas(table, cfg), lambda: run_mhas(table, cfg, device="cuda")):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+
 
 # ------------------------------------------------------ the paper's widths
 PAPER_ARCHS = {

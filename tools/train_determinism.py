@@ -4,8 +4,8 @@
     python3 tools/train_determinism.py [--runs 2] [--deterministic]
 
 Trains the model that ``chip_smoke.py``'s ``train`` phase trains (TPC-H
-``orders`` at ``chip_smoke.ROWS`` rows, the layers ``SF1_LAYERS`` and the
-``TrainConfig`` ``SF1_TRAIN``, seed 0) ``--runs`` times in one process
+``orders`` at ``chip_smoke.ROWS`` rows, the layers and the ``TrainConfig``
+of the port's ``PAPER_STORE``, seed 0) ``--runs`` times in one process
 through ``repro_torch.core.trainer.train``, each from the same initial
 weights and the same batch order.  Prints one JSON line per run (epochs,
 last loss, the epoch losses' digest, seconds) and a summary: whether the
@@ -24,6 +24,7 @@ changes nothing in the package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -35,6 +36,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 SEED = 0
 STEP_REPS = 5
+
+
+def leaf_names(tree, prefix=""):
+    """The names of ``model._leaves(tree)``, in its order (dict keys
+    sorted): ``shared[0].w``, ``heads.<task>.out.b`` and so on."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_names(tree[k], f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaf_names(v, f"{prefix}[{i}]")
+    else:
+        yield prefix
 
 
 def step_check(spec, digits, codes, cfg, reps: int) -> dict:
@@ -54,11 +68,7 @@ def step_check(spec, digits, codes, cfg, reps: int) -> dict:
     idx = np.random.default_rng(cfg.seed).permutation(digits.shape[0])[: cfg.batch_size]
     d = torch.from_numpy(np.ascontiguousarray(digits[idx], dtype=np.int32)).cuda()
     c = torch.from_numpy(np.ascontiguousarray(codes[idx], dtype=np.int32)).cuda()
-    names = [f"shared[{i}].{k}" for i, layer in enumerate(params["shared"]) for k in layer]
-    for t in spec.tasks:
-        head = params["heads"][t]
-        names += [f"{t}.hidden[{j}].{k}" for j, layer in enumerate(head["hidden"]) for k in layer]
-        names += [f"{t}.out.{k}" for k in head["out"]]
+    names = list(leaf_names(params))
     runs = []
     for _ in range(reps):
         leaves = [t.detach().requires_grad_(True) for t in model_lib._leaves(params)]
@@ -90,6 +100,7 @@ def main() -> int:
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke as smoke
+    from repro_torch.configs.deepmapping_paper import PAPER_STORE
     from repro_torch.core import KeyEncoder, MLPSpec
     from repro_torch.core import trainer as trainer_lib
     from repro_torch.core.encoding import build_codecs
@@ -103,12 +114,12 @@ def main() -> int:
     table = orders_like(smoke.ROWS, seed=SEED)
     encoder = KeyEncoder(table.max_key, base=10)
     codecs = build_codecs(table.columns)
-    spec = MLPSpec(base=10, width=encoder.width, shared=smoke.SF1_LAYERS["shared"],
-                   private={c: smoke.SF1_LAYERS["private"] for c in table.columns},
+    spec = MLPSpec(base=10, width=encoder.width, shared=PAPER_STORE.shared,
+                   private={c: PAPER_STORE.private for c in table.columns},
                    out_cards={c: codecs[c].cardinality for c in table.columns})
     digits = encoder.digits(table.keys)
     codes = np.stack([codecs[t].codes for t in spec.tasks], axis=1)
-    cfg = trainer_lib.TrainConfig(**smoke.SF1_TRAIN, seed=SEED)
+    cfg = dataclasses.replace(PAPER_STORE.train, seed=SEED)
     histories, error = [], None
     try:
         step = step_check(spec, digits, codes, cfg, STEP_REPS)
