@@ -54,7 +54,26 @@ on them against its plain PyTorch version on the card:
                 keys absent; 10,000 inserts/updates/deletes re-checked;
 5. streamed   — the same lookups through the ``fused_streamed`` tier
                 under a forced budget, byte-identical to phase 4;
-6. mhas_search — MHAS (Algorithm 2, ``run_mhas``) over the same table
+6. lm_serve   — the LM substrate's dense decoders through the serve
+                steps (``make_prefill_step``, ``make_decode_step``,
+                ``make_cache_factory``), no DeepMapping kernel on the
+                path: tinyllama-1.1b at full width and depth (22 layers,
+                d_model 2,048, 32 heads over 4 kv heads, d_ff 5,632,
+                vocab 32,000), weights from ``DecoderLM.init`` on the card
+                in fp32, their count against ``param_count_estimate``;
+                64 tokens of 2 sequences decoded step by step from an
+                empty cache against their prefill within 2e-3; the same
+                weights in bf16: a 4 x 2,048-token prefill (tokens/s,
+                every logit finite, argmaxes equal to the fp32 prefill's
+                on 99% of the rows with an fp32 top-two margin of 0.1 or
+                more), a greedy decode of 64 steps at batch 4 in a
+                2,112-slot cache (ms a step), peak device memory; then
+                gemma3-1b at full width (window 512, tied), its depth cut
+                to 8 layers (one 6-layer group and a 2-layer remainder):
+                a 1,024-token fp32 prefill, banded on its windowed layers,
+                against the windowed decode of the same tokens within
+                2e-3;
+7. mhas_search — MHAS (Algorithm 2, ``run_mhas``) over the same table
                 under the port's ``PAPER_MHAS`` at the paper's layer
                 sizes (100 to 2,000, depth 2), batches (16,384 and 2,048),
                 8 samples a controller update and learning rates, its
@@ -70,7 +89,7 @@ on them against its plain PyTorch version on the card:
                 build and at lookup, and the path's launches equal to
                 those tiers'; then K1 and K2 on its model against their
                 plain versions, and the bank freed;
-7. train      — the same table built with no weights: the store trains
+8. train      — the same table built with no weights: the store trains
                 at the paper's width and ``TrainConfig`` (batch 16,384,
                 up to 200 epochs), evaluates T_aux through K2 and answers
                 every key losslessly through K1; a few training steps
@@ -78,14 +97,14 @@ on them against its plain PyTorch version on the card:
                 session: one CUDA kernel a call on contiguous keys, and
                 the call's split (word upload, kernels, wall; its own
                 JSON line, ``bitvector_profile``);
-8. persist    — the trained store saved by the port in the reference's
+9. persist    — the trained store saved by the port in the reference's
                 v2 layout and reopened through ``repro_torch.open``:
                 every SF1 key plus 100,000 absent and 2,000
                 out-of-capacity keys answer byte for byte as before the
                 save and losslessly; a bit flipped in ``vexist.bin``
                 raises ``IntegrityError``; save, load and first-lookup
                 seconds and each artifact's bytes;
-9. query      — nine plans through ``store.query()`` on the reopened
+10. query      — nine plans through ``store.query()`` on the reopened
                 store (a projected ``where_keys`` on 65,536 keys, a
                 ``scan`` with a ``where`` conjunction on two heads, a
                 ``where_range``, a count-only ``group_by``, a self-join
@@ -99,13 +118,14 @@ on them against its plain PyTorch version on the card:
                 main store after its mutations.  K1 must run with
                 predicate tables and every ``where`` plan must report
                 ``kernel_filtered``;
-10. cluster   — the reference's default cluster (``ClusterConfig()``:
+11. cluster   — the reference's default cluster (``ClusterConfig()``:
                 4 range shards) over the same SF1 table, every shard
                 trained on the card with the train phase's config through
                 ``repro_torch.build(..., cluster=...)``, one shard at a
-                time (cut for time), then served under the default
-                config; the default build (shards on four threads at
-                once) over a 187,500-row prefix, every key looked up, and
+                time and for at most 110 epochs (both cut for time),
+                then served under the default config; the default
+                build (shards on four threads at once) over a
+                187,500-row prefix, every key looked up, and
                 each of its shards' T_aux rows found again through K2 on
                 one thread and on four at once, equal to the build's
                 (after the path's counts); every key, absent and
@@ -122,7 +142,7 @@ on them against its plain PyTorch version on the card:
                 ``aux.msgpack`` refused, then quarantined with the healthy
                 shards serving.  Every plan without an injected fault
                 retries nothing;
-11. serve     — the batched ``LookupServer`` over the train phase's
+12. serve     — the batched ``LookupServer`` over the train phase's
                 store and the cluster (after its mutations): 2,048
                 requests of 1 to 4,096 keys (log-uniform), Zipf-skewed
                 (s = 1.1) over the present keys with 5% absent and 1%
@@ -144,7 +164,7 @@ on them against its plain PyTorch version on the card:
                 reopens the save and serves again; every request found,
                 the store lossless.  The path's launches are read before
                 the checks that look keys up outside the servers;
-12. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
+13. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
                 rows under the reference benchmark's DM-R config,
                 trained on the card through ``repro_torch.build``: every
                 key lossless, absent and out-of-capacity keys absent; the
@@ -155,7 +175,7 @@ on them against its plain PyTorch version on the card:
                 through ``repro_torch.open`` with the same answers; K1
                 (with and without predicate tables) and K2 on the store's
                 model and residue features against their plain versions;
-13. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
+14. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
                 under DM-R (20 epochs, cut for time), with two key
                 choices: (key, credit rating),
                 whose packed domain fits int32 (K1), and (key, purchase
@@ -163,7 +183,7 @@ on them against its plain PyTorch version on the card:
                 lossless on every row, unknown combinations absent; each
                 choice's kernel on its store's model against its plain
                 version;
-14. baselines — every AB/HB factory of the paper (§V-A3) on
+15. baselines — every AB/HB factory of the paper (§V-A3) on
                 ``customer_demographics`` (HBC-L on its first 960,400
                 rows, cut for time) and on SF1 ``orders``: exact on
                 100,000 present and 50,000 absent keys, saved, reopened
@@ -173,11 +193,11 @@ on them against its plain PyTorch version on the card:
                 stores probed the same way.  Baselines are host code:
                 they build in a pool of spawned workers (never forked
                 from the process that holds the CUDA context), one per
-                core but two, started before phase 12 and running beside
-                phases 12 and 13; a hash store's reopened lookup is timed
+                core but two, started before phase 13 and running beside
+                phases 13 and 14; a hash store's reopened lookup is timed
                 in its worker, an array store's in the main process once
                 at most one worker is left (and again alone if one was);
-15. times     — kernel and plain-version times with CUDA events, the
+16. times     — kernel and plain-version times with CUDA events, the
                 kernels' bounds, K3's two instantiations at 65,536 keys
                 and at its largest call (one launch, a run of 100, L2
                 flushed) beside the launch floor, K1/K2 under each plan
@@ -187,13 +207,15 @@ on them against its plain PyTorch version on the card:
 
 Each kernel's launches are counted on every path that drives the port
 (the MHAS children of phase 2 through K2 as path ``mhas`` and through
-their engines as ``mhas_engine``, and phases 3 to 14, the search
+their engines as ``mhas_engine``, and phases 3 to 15, the search
 and its store as ``mhas_search``), with
 the counts set to 0 just before each path and read just after; K1's
 launches that carried predicate tables are counted apart.  The launches
 made to compare a kernel with its plain version (the rest of phase 2,
-and in phases 6, 12 and 13 after their counts are read) and those of
-phase 15 do not count.
+and in phases 7, 13 and 14 after their counts are read) and those of
+phase 16 do not count.  The LM path of phase 6 launches none of the
+three kernels (the reference's LM path reaches no Pallas kernel); its
+counts, all 0, are read as path ``lm_serve``.
 Each phase prints one JSON line with its seconds (``phase_s``); any
 failed check raises (non-zero exit).  The last lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -293,6 +315,13 @@ LAUNCH_REQUESTS = 100
 #: SF1 ``orders`` table and an epoch cap, cut for the smoke's time (the
 #: SF1 cluster itself trains one shard at a time).
 CL_THREADED_ROWS, CL_THREADED_EPOCHS = 187_500, 20
+#: Epochs at most of the SF1 cluster's shard trainings (its one-thread
+#: build and the retrain): PAPER_STORE's 200 capped, cut for the smoke's
+#: time to pay for the lm_serve phase.  Uncapped, the shards stop early
+#: after 118-144 epochs, so some still stop early under this cap.  Every
+#: shard stays lossless whatever its epochs, since T_aux corrects the
+#: deployed model.
+CL_EPOCHS = 120
 #: The kernels phase's MHAS check: SF1 keys run through every child, the
 #: children the controller samples (beside the four fixed ones), and the
 #: tolerance of the masked forward against K2 on the extracted child: a
@@ -311,6 +340,26 @@ MHAS_TOL = 1e-4
 #: baseline, unless the early stop ends the loop before the tenth), and
 #: the fine-tune's epochs (``MHASConfig``'s 30; its early stop kept).
 MHAS_SEARCH_ITERS, MHAS_CTRL_ITERS, MHAS_FINETUNE_EPOCHS = 20, 4, 5
+#: The lm_serve phase (the LM substrate's dense decoders, ROADMAP M12a):
+#: tinyllama-1.1b at full width and depth, its fp32 decode from an empty
+#: cache held against its fp32 prefill on (sequences, tokens); the bf16
+#: prefill of (sequences, tokens) and the greedy bf16 decode of (steps,
+#: sequences) in a cache of LM_CACHE slots.  Then gemma3-1b at full width,
+#: its depth cut to LM_WINDOW_LAYERS (one 6-layer group and a 2-layer
+#: remainder, the plan of its SMOKE config), prefilled and decoded over
+#: LM_WINDOW_TOKENS in fp32: the banded prefill (LM_WINDOW_TOKENS % 512
+#: == 0) against the windowed decode.
+LM_ARCH, LM_WINDOW_ARCH = "tinyllama-1.1b", "gemma3-1b"
+LM_CHECK = (2, 64)
+LM_PREFILL = (4, 2048)
+LM_DECODE = (64, 4)
+LM_CACHE = 2112
+LM_WINDOW_LAYERS, LM_WINDOW_TOKENS = 8, 1024
+#: Decode against prefill in fp32: the reference's own tolerance
+#: (tests/test_models.py, rtol and atol).  bf16 prefill argmaxes must
+#: equal the fp32 run's on at least LM_AGREE of the rows whose fp32
+#: top-two margin is at least LM_MARGIN.
+LM_TOL, LM_MARGIN, LM_AGREE = 2e-3, 0.1, 0.99
 
 RECORD: dict = {}
 
@@ -1119,6 +1168,207 @@ def mhas_search_phase(table, absent, out_cap, dev, seed: int, read_launches) -> 
     return rec, launches, store
 
 
+def lm_serve_phase(dev, seed: int) -> dict:
+    """The LM substrate's serving path (``make_prefill_step``,
+    ``make_decode_step``, ``make_cache_factory``) on the dense decoders:
+
+    (a) tinyllama-1.1b at full width and depth, weights from
+        ``DecoderLM.init`` on the card in fp32 (their count against
+        ``param_count_estimate``, which leaves out the norms' scales);
+        LM_CHECK tokens decoded one step at a time from an empty cache,
+        held against the prefill of the same tokens within LM_TOL;
+    (b) the same weights cast to the config's bfloat16: the prefill of
+        LM_PREFILL tokens timed (tokens/s), every logit finite and the
+        argmaxes equal to the fp32 prefill's on LM_AGREE of the rows with
+        an fp32 top-two margin of LM_MARGIN or more; a greedy decode of
+        LM_DECODE steps and sequences in a LM_CACHE-slot cache timed (ms a
+        step, tokens/s); the peak device memory of the bf16 part;
+    (c) gemma3-1b at full width, depth cut to LM_WINDOW_LAYERS: the fp32
+        prefill of LM_WINDOW_TOKENS (banded on its windowed layers)
+        against the windowed decode of the same tokens, within LM_TOL, at
+        positions past the window too.
+
+    bf16 products accumulate in fp32 and TF32 stays off, as ``smoke()``
+    sets both for the whole run.  Prompts are drawn from a generator seeded with
+    ``seed``.  Returns the record of the phase's JSON line."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.model import _leaves, _map_tree
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.serve_step import (
+        make_cache_factory, make_decode_step, make_prefill_step,
+    )
+
+    check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          "lm_serve: bf16 products would be reduced in bf16 (smoke() turns that off)")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def excess(got, want):
+        """max(|got - want| - (LM_TOL + LM_TOL |want|)): <= 0 where close."""
+        return ((got.float() - want).abs() - LM_TOL * (1 + want.abs())).amax()
+
+    def decode_against(params, cfg, toks, full):
+        """Decode ``toks`` one at a time from an empty cache; per step the
+        largest excess over the tolerance and difference against ``full``
+        (on the device, read once at the end)."""
+        B, S = toks.shape
+        step = make_decode_step(cfg, device=dev)
+        cache = make_cache_factory(cfg, device=dev)(B, S)
+        exc, diff = [], []
+        for t in range(S):
+            lg, cache = step(params, cache, toks[:, t:t + 1])
+            exc.append(excess(lg[:, 0], full[:, t]))
+            diff.append((lg[:, 0].float() - full[:, t]).abs().amax())
+        check(int(cache["len"]) == S, f"{cfg.name}: the cache's len is not {S}")
+        return torch.stack(exc).cpu(), torch.stack(diff).cpu()
+
+    rec: dict = {"bf16_reduced_precision_reduction": False}
+
+    # (a) tinyllama-1.1b, fp32, at full width and depth.
+    arch = get_arch(LM_ARCH)
+    cfg32 = dataclasses.replace(arch.config, dtype="float32")
+    model = DecoderLM(cfg32)
+    params, init_s = timed(lambda: model.init(seed, device=dev))
+    n_params = sum(t.numel() for t in _leaves(params))
+    est = cfg32.param_count_estimate()
+    norms = (2 * cfg32.num_layers + 1) * cfg32.d_model
+    check(n_params == est + norms,
+          f"{LM_ARCH}: {n_params} parameters, not the estimate {est} plus {norms} norm scales")
+    check(all(t.device.type == dev.type for t in _leaves(params)),
+          f"{LM_ARCH}: a weight is not on {dev}")
+    B, S = LM_CHECK
+    toks = torch.randint(0, cfg32.vocab_size, (B, S), generator=gen, device=dev)
+    prefill32 = make_prefill_step(cfg32, device=dev)
+    full, _ = timed(lambda: prefill32(params, {"tokens": toks}).float())
+    (exc, diff), dec32_s = timed(lambda: decode_against(params, cfg32, toks, full))
+    check(bool((exc <= 0).all()), f"{LM_ARCH}: fp32 decode differs from prefill past "
+          f"{LM_TOL} at step {int(exc.argmax())} (max abs {float(diff.max())})")
+    rec["tinyllama"] = {
+        "config": {k: getattr(cfg32, k) for k in (
+            "name", "num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
+            "vocab_size")},
+        "params": n_params, "param_count_estimate": est, "norm_scales": norms,
+        "init_s": init_s,
+        "fp32_decode_vs_prefill": {"sequences": B, "tokens": S, "max_abs_diff": float(diff.max()),
+                                   "tol": LM_TOL, "decode_s": dec32_s,
+                                   "decode_ms_per_step": dec32_s / S * 1e3},
+    }
+    del full
+
+    # (b) the same weights in bf16: prefill and greedy decode, timed.
+    Bp, Sp = LM_PREFILL
+    prompts = torch.randint(0, cfg32.vocab_size, (Bp, Sp), generator=gen, device=dev)
+    lg32, pre32_s = timed(lambda: prefill32(params, {"tokens": prompts}))
+    top2 = torch.topk(lg32, 2, dim=-1).values
+    margin32 = top2[..., 0] - top2[..., 1]
+    arg32 = lg32.argmax(dim=-1)
+    del lg32, top2
+    cfg16 = arch.config
+    check(cfg16.dtype == "bfloat16", f"{LM_ARCH}'s config is not bf16")
+    params16 = _map_tree(params, lambda t: t.to(torch.bfloat16))
+    del params
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem_before = torch.cuda.memory_allocated()
+    prefill16 = make_prefill_step(cfg16, device=dev)
+    pre16_runs = []
+    for _ in range(4):  # the first run warms cuBLAS up and is not counted
+        lg16, s16 = timed(lambda: prefill16(params16, {"tokens": prompts}))
+        pre16_runs.append(s16)
+    check(lg16.dtype == torch.bfloat16 and tuple(lg16.shape) == (Bp, Sp, cfg16.vocab_size),
+          f"{LM_ARCH}: bf16 prefill gave {lg16.dtype} {tuple(lg16.shape)}")
+    check(bool(torch.isfinite(lg16).all()), f"{LM_ARCH}: a bf16 prefill logit is not finite")
+    clear = margin32 >= LM_MARGIN
+    agree = float((lg16.argmax(dim=-1) == arg32)[clear].float().mean())
+    n_clear = int(clear.sum())
+    check(n_clear > 0 and agree >= LM_AGREE,
+          f"{LM_ARCH}: bf16 argmax equals fp32 on {agree} of {n_clear} clear rows")
+    del lg16
+    Sd, Bd = LM_DECODE
+    step16 = make_decode_step(cfg16, device=dev)
+    caches = make_cache_factory(cfg16, device=dev)
+
+    def greedy(steps):
+        cache = caches(Bd, LM_CACHE)
+        tok = prompts[:Bd, :1]
+        out, finite = [], []
+        for _ in range(steps):
+            lg, cache = step16(params16, cache, tok)
+            finite.append(torch.isfinite(lg).all())
+            tok = lg[:, -1].argmax(dim=-1, keepdim=True)
+            out.append(tok)
+        return torch.cat(out, dim=1), torch.stack(finite), cache
+
+    timed(lambda: greedy(4))  # warm-up
+    (gen_toks, finite, cache16), dec16_s = timed(lambda: greedy(Sd))
+    check(bool(finite.all()), f"{LM_ARCH}: a bf16 decode logit is not finite")
+    check(int(cache16["len"]) == Sd and int(gen_toks.max()) < cfg16.vocab_size,
+          f"{LM_ARCH}: the greedy decode's cache or tokens are wrong")
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    pre16_s = statistics.median(pre16_runs[1:])
+    rec["tinyllama"]["bf16"] = {
+        "weight_bytes": sum(t.numel() * t.element_size() for t in _leaves(params16)),
+        "prefill": {"sequences": Bp, "tokens": Sp, "s": pre16_s, "s_runs": pre16_runs,
+                    "tokens_per_s": Bp * Sp / pre16_s, "fp32_s": pre32_s},
+        "argmax_vs_fp32": {"margin": LM_MARGIN, "rows": n_clear,
+                           "of_rows": Bp * Sp, "equal_share": agree, "need": LM_AGREE},
+        "decode": {"steps": Sd, "sequences": Bd, "cache_slots": LM_CACHE, "s": dec16_s,
+                   "ms_per_step": dec16_s / Sd * 1e3, "tokens_per_s": Bd * Sd / dec16_s},
+        "peak_device_bytes": peak,
+        "peak_device_bytes_over_start": peak - mem_before if dev.type == "cuda" else 0,
+    }
+    del params16, cache16, prompts, margin32, arg32
+
+    # (c) gemma3-1b at full width, depth cut: banded prefill vs windowed decode.
+    garch = get_arch(LM_WINDOW_ARCH)
+    gcfg = dataclasses.replace(garch.config, num_layers=LM_WINDOW_LAYERS, dtype="float32")
+    gmodel = DecoderLM(gcfg)
+    seg = gmodel.segments[0]
+    window = max(seg.windows)
+    check(len(gmodel.segments) == 1 and seg.groups == 1 and len(seg.remainder) == 2
+          and LM_WINDOW_TOKENS % window == 0 and LM_WINDOW_TOKENS > window,
+          f"{LM_WINDOW_ARCH}: the cut is not one group and a 2-layer remainder over a "
+          f"banded prefill")
+    gparams, ginit_s = timed(lambda: gmodel.init(seed, device=dev))
+    gtoks = torch.randint(0, gcfg.vocab_size, (1, LM_WINDOW_TOKENS), generator=gen, device=dev)
+    gfull, gpre_s = timed(lambda: make_prefill_step(gcfg, device=dev)(
+        gparams, {"tokens": gtoks}).float())
+    (gexc, gdiff), gdec_s = timed(lambda: decode_against(gparams, gcfg, gtoks, gfull))
+    check(bool((gexc <= 0).all()), f"{LM_WINDOW_ARCH}: windowed decode differs from the "
+          f"banded prefill past {LM_TOL} at step {int(gexc.argmax())}")
+    rec["gemma3"] = {
+        "config": {k: getattr(gcfg, k) for k in (
+            "name", "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff", "vocab_size",
+            "window_pattern", "tie_embeddings")},
+        "reduced": {"num_layers": [LM_WINDOW_LAYERS, garch.config.num_layers]},
+        "plan": {"groups": seg.groups, "pattern_windows": list(seg.windows),
+                 "remainder_windows": list(seg.rem_windows)},
+        "params": sum(t.numel() for t in _leaves(gparams)), "init_s": ginit_s,
+        "tokens": LM_WINDOW_TOKENS, "prefill_s": gpre_s, "decode_s": gdec_s,
+        "decode_ms_per_step": gdec_s / LM_WINDOW_TOKENS * 1e3,
+        "max_abs_diff": float(gdiff.max()),
+        "max_abs_diff_past_window": float(gdiff[window:].max()), "tol": LM_TOL,
+    }
+    del gparams, gfull
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
 def baseline_table(name: str, seed: int):
     """The baselines phase's tables: TPC-DS ``customer_demographics`` in
     full and its first HBCL_CD_ROWS rows, and TPC-H ``orders`` at SF1
@@ -1614,6 +1864,9 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    # bf16 products (lm_serve) accumulate in fp32.
+    bf16_red_was = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     build.build_all()
     fm.library()
@@ -1627,6 +1880,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         tf32_before={"matmul": tf32_was[0], "precision": tf32_was[1], "cudnn": tf32_was[2]},
         tf32_now={"matmul": False, "precision": "highest", "cudnn": False},
+        bf16_reduced_precision_reduction={"before": bf16_red_was, "now": False},
         kernel_build_s=build_s,
         nvcc_seconds={src: info["seconds"] for src, info in build.BUILD_INFO.items()},
         ptxas=ptxas,
@@ -2152,7 +2406,20 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          pages_with_exists=plan[1], fused_streamed_calls=streamed.stats.fused_streamed_calls,
          fused_lookup_launches=paths["streamed"]["fused_lookup"])
 
-    # --------------------------------------------------- 6. mhas_search
+    # ------------------------------------------------------- 6. lm_serve
+    # The LM substrate's dense decoders through the serve steps
+    # (lm_serve_phase); no DeepMapping kernel lies on this path, so its
+    # counts are read as a path of their own and must all be 0.  The
+    # phase draws from a generator of its own, so later phases draw as
+    # they did.
+    reset_launches()
+    lm_rec = lm_serve_phase(dev, args.seed)
+    paths["lm_serve"] = read_launches()
+    check(not any(paths["lm_serve"].values()),
+          f"lm_serve launched a DeepMapping kernel: {paths['lm_serve']}")
+    emit("lm_serve", nvidia_smi=smi, **lm_rec, launches=paths["lm_serve"])
+
+    # ---------------------------------------------------- 7. mhas_search
     # MHAS (Algorithm 2) over this table at the paper's layer widths
     # (PAPER_MHAS, its iterations cut), then the searched store built
     # from the chosen child and looked up: its launches count on a path
@@ -2179,7 +2446,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     emit("mhas_search", **search_rec, launches=paths["mhas_search"],
          kernels_vs_plain=search_kernels, device_bytes_held_after=held)
 
-    # --------------------------------------------------------- 7. train
+    # ---------------------------------------------------------- 8. train
     # build() with no weights trains (the paper's TrainConfig), then
     # evaluates T_aux through K2 and serves through K1.  The trainer is
     # wrapped only to read its loss history and time it.
@@ -2286,7 +2553,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
         check(len(got_k) == want and "bitvector_kernel" in got_k[-1],
               f"bitvector_test on {label} keys ran {got_k}, not {want} kernel(s) ending in K3")
 
-    # ------------------------------------------------------- 8. persist
+    # -------------------------------------------------------- 9. persist
     # The trained store saved by the port in the reference's v2 layout
     # and reopened through repro_torch.open, onto the card: every SF1
     # key plus the absent and out-of-capacity keys answer byte for byte
@@ -2345,7 +2612,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          aux_codec=loaded.config.codec + ("" if storage.HAVE_ZSTD else " (zlib fallback)"),
          integrity_error=integrity_error, launches=persist_launches)
 
-    # --------------------------------------------------------- 9. query
+    # --------------------------------------------------------- 10. query
     # Plans through store.query() on the reopened SF1 store, each held
     # against a numpy oracle over the source table and byte for byte
     # against pushdown(False); the where plans again on the main store
@@ -2570,7 +2837,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          point_keys=int(qk.size), range=[lo, hi], launches=query_launches)
     del loaded
 
-    # ------------------------------------------------------ 10. cluster
+    # ------------------------------------------------------- 11. cluster
     # The reference's default cluster (ClusterConfig(): 4 range shards,
     # the 4 that benchmarks/bench_shards.py runs) over the SF1 orders
     # table, every shard trained on the card with the train phase's
@@ -2610,9 +2877,12 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     cl_config = ClusterConfig()
     check(cl_config.num_shards == 4 and cl_config.policy == "range",
           "ClusterConfig's defaults are not the reference's 4 range shards")
-    # PAPER_STORE as trained in the train phase; any modified byte marks
-    # a shard dirty, so retrain() rebuilds exactly the shards mutated.
-    cl_cfg = dataclasses.replace(train_cfg, retrain_after_modified_bytes=1)
+    # PAPER_STORE as trained in the train phase, its epochs capped at
+    # CL_EPOCHS; any modified byte marks a shard dirty, so retrain()
+    # rebuilds exactly the shards mutated.
+    cl_cfg = dataclasses.replace(
+        train_cfg, retrain_after_modified_bytes=1,
+        train=dataclasses.replace(train_cfg.train, epochs=CL_EPOCHS))
     cl_shard_of = plan_range_partitions(train_table.keys, cl_config.num_shards).shard_of
     # Per-shard training and T_aux evaluation, recorded from the build's
     # threads: a thread's train record is completed by the evaluation
@@ -2964,7 +3234,9 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
                                        "policy": cl_config.policy,
                                        "max_workers": cl_config.max_workers,
                                        "build_workers": 1,
-                                       "retrain_after_modified_bytes": 1},
+                                       "retrain_after_modified_bytes": 1,
+                                       "epochs_cap": CL_EPOCHS,
+                                       "epochs_uncapped": train_cfg.train.epochs},
          boundaries=cluster.partitioner.boundaries.tolist(), build_s=cl_build_s,
          default_build=thr_rec,
          shards=cl_shards, memorized_fraction=cluster.memorized_fraction(),
@@ -2991,7 +3263,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          launches=cl_launches)
     del rep, part, ab, rres, pres, fres, ores, qres, live_want
 
-    # --------------------------------------------------------- 11. serve
+    # --------------------------------------------------------- 12. serve
     # The batched LookupServer over the train phase's single store and
     # the cluster (as the cluster phase left it), then the launcher; host
     # times here are taken before the baseline pool starts.
@@ -3014,7 +3286,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     cluster.close()
     del cluster
 
-    # The baseline pool (phase 14's stores) starts here, beside the
+    # The baseline pool (phase 15's stores) starts here, beside the
     # correlated and multikey phases, on all cores but two: a training
     # step there is launch-bound on one core.  Spawned workers, never
     # forked from this process, which holds a CUDA context.
@@ -3029,7 +3301,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     bl_jobs = [bl_pool.apply_async(baseline_job, (t, f, args.seed, str(bl_dir)))
                for t, f in BASELINE_JOBS]
 
-    # --------------------------------------------------- 12. correlated
+    # ---------------------------------------------------- 13. correlated
     # TPC-DS customer_demographics at its full 1,920,800 rows (every
     # column a periodic function of the key) under the reference
     # benchmark's DM-R config, built with repro_torch.build on the card:
@@ -3165,7 +3437,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          build_launches=cd_build_launches, launches=cd_launches,
          kernels_vs_plain=cd_kernels)
 
-    # ------------------------------------------------------ 13. multikey
+    # ------------------------------------------------------ 14. multikey
     # MultiKeyMapping over a customer_demographics prefix under DM-R, two
     # key choices: (key, credit rating) packs into int32 and serves
     # through K1; (key, purchase estimate) packs past int32 (raw integers
@@ -3244,10 +3516,10 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          build_launches=mk_build_launches, size_bytes=mk.size_bytes(), launches=mk_launches)
     del mk
 
-    # ----------------------------------------------------- 14. baselines
+    # ----------------------------------------------------- 15. baselines
     # Every AB/HB factory on customer_demographics and on SF1 orders,
     # built, checked, saved, bit-flipped and reopened by the pool started
-    # before phase 12; the hash stores' reopened lookups are timed in
+    # before phase 13; the hash stores' reopened lookups are timed in
     # their workers (about 15,000-40,000 keys/s, a core's work either
     # way).  Each array store's saved file is reopened here through
     # repro_torch.open and its lookup timed as the DeepMapping stores'
@@ -3335,7 +3607,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          deepmapping=dm_rows, launches=paths["baselines"])
     del cd_store
 
-    # -------------------------------------------------------- 15. times
+    # --------------------------------------------------------- 16. times
     n = 65536
     kp = rng.choice(table.keys, n).astype(np.int32)
     kt = torch.from_numpy(kp).to(dev)

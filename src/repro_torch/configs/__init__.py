@@ -1,8 +1,21 @@
-"""The paper's own workload configs (:mod:`.deepmapping_paper`).
+"""Per-architecture configs and the paper's own config.
 
-The reference's ``repro.configs`` package also registers the LM
-architectures of its training substrate (``base.py`` and ten arch
-modules, imported for their side effect).  Those belong to the LM
-substrate, which the port has not taken yet (ROADMAP item M12), so this
-package registers none.
+The port of ``repro.configs``.  Importing this package registers the
+:class:`~repro_torch.configs.base.ArchSpec` of the five dense decoders
+the port runs (tinyllama-1.1b, qwen2-7b, granite-3-2b, gemma3-1b,
+phi-3-vision-4.2b); use ``get_arch("<id>")`` / ``list_archs()``.  The
+reference also registers deepseek-v3-671b, llama4-scout-17b,
+recurrentgemma-2b, rwkv6-7b and seamless-m4t-medium: their MLA, MoE,
+RG-LRU, RWKV and encoder-decoder blocks wait for ROADMAP item M12c.
+:mod:`.deepmapping_paper` holds the paper's workload configs.
 """
+
+from repro_torch.configs.base import SHAPES, ArchSpec, get_arch, list_archs  # noqa: F401
+
+# side-effect registration — one module per ported architecture
+from repro_torch.configs import gemma3_1b  # noqa: F401
+from repro_torch.configs import granite3_2b  # noqa: F401
+from repro_torch.configs import phi3_vision_4_2b  # noqa: F401
+from repro_torch.configs import qwen2_7b  # noqa: F401
+from repro_torch.configs import tinyllama_1_1b  # noqa: F401
+from repro_torch.configs import deepmapping_paper  # noqa: F401

@@ -120,6 +120,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -831,12 +833,36 @@ struct LookupArgs {
   int *codes, *exists, *match;
 };
 
+// A kernel's dynamic shared memory limit is one attribute of an
+// instantiation on a device.  It is set once for each, to SMEM_LIMIT
+// (check_shape rejects any launch past it), never to one launch's size:
+// threads that launch one instantiation at once with other sizes (a
+// cluster's shards, whose models differ) would otherwise set it under each
+// other's launches, and a launch past the size another thread just set
+// fails with "invalid argument".
+constexpr int MAX_DEVICES = 64;
+
+template <typename Kernel>
+int allow_smem_limit(Kernel kernel, std::once_flag (&once)[MAX_DEVICES],
+                     int (&set_err)[MAX_DEVICES]) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  std::call_once(once[dev], [&] {
+    set_err[dev] = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  });
+  return set_err[dev];
+}
+
 template <int TILE, int RM, int CN>
 int launch_lookup(const Model& m, int smem_bytes, const LookupArgs& a, cudaStream_t st) {
   int err = check_shape<TILE, RM, CN>(m, smem_bytes);
   if (err) return err;
-  err = (int)cudaFuncSetAttribute(fused_lookup_kernel<TILE, RM, CN>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  static std::once_flag once[MAX_DEVICES];
+  static int set_err[MAX_DEVICES];
+  err = allow_smem_limit(fused_lookup_kernel<TILE, RM, CN>, once, set_err);
   if (err) return err;
   fused_lookup_kernel<TILE, RM, CN><<<(a.n + TILE - 1) / TILE, THREADS, smem_bytes, st>>>(
       m, a.keys, a.n, a.ops, a.capacity, a.words, a.n_words, a.with_exists, a.preds, a.codes,
@@ -849,8 +875,9 @@ int launch_mlp(const Model& m, int smem_bytes, const int* digits, int n, int emi
                int* codes, cudaStream_t st) {
   int err = check_shape<TILE, RM, CN>(m, smem_bytes);
   if (err) return err;
-  err = (int)cudaFuncSetAttribute(fused_mlp_kernel<TILE, RM, CN>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  static std::once_flag once[MAX_DEVICES];
+  static int set_err[MAX_DEVICES];
+  err = allow_smem_limit(fused_mlp_kernel<TILE, RM, CN>, once, set_err);
   if (err) return err;
   fused_mlp_kernel<TILE, RM, CN><<<(n + TILE - 1) / TILE, THREADS, smem_bytes, st>>>(
       m, digits, n, emit_codes, codes);

@@ -1,9 +1,9 @@
 """Import hygiene and device defaults of the port.
 
-* ``repro_torch`` imports with ``jax``, ``msgpack``, ``zstandard`` and
-  ``benchmarks`` blocked, and no module under ``src/repro_torch``
-  imports ``jax``, anything of ``repro`` or ``benchmarks``, or
-  ``msgpack``; ``zstandard`` appears only as
+* ``repro_torch`` imports with ``jax``, ``ml_dtypes``, ``msgpack``,
+  ``zstandard`` and ``benchmarks`` blocked, and no module under
+  ``src/repro_torch`` imports ``jax``, ``ml_dtypes``, anything of
+  ``repro`` or ``benchmarks``, or ``msgpack``; ``zstandard`` appears only as
   the optional import of ``storage/codecs.py`` (zlib stands in without
   it);
 * entry points default to CUDA and raise when none is present (no CPU
@@ -62,7 +62,7 @@ def test_module_imports_neither_jax_nor_repro(path):
     optional = set(_optional_imports(path))
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro", "benchmarks", "msgpack"), (
+        assert top not in ("jax", "jaxlib", "ml_dtypes", "repro", "benchmarks", "msgpack"), (
             f"{path.name} imports {name}")
         if top == "zstandard":
             assert path.relative_to(PKG) == Path("storage/codecs.py") and name in optional, (
@@ -76,13 +76,13 @@ def test_import_with_jax_blocked():
     ]
     code = (
         "import sys\n"
-        "for m in ('jax', 'msgpack', 'zstandard', 'benchmarks'):\n"
+        "for m in ('jax', 'ml_dtypes', 'msgpack', 'zstandard', 'benchmarks'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, repro_torch\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m, mod in list(sys.modules.items())\n"
-        "       if mod is not None and m.split('.')[0] in ('repro', 'jax', 'benchmarks')]\n"
+        "       if mod is not None and m.split('.')[0] in ('repro', 'jax', 'ml_dtypes', 'benchmarks')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -198,9 +198,14 @@ def test_module_scan_covers_this_slices_modules():
             "core/mhas/controller.py"} <= names
     assert {"core/mhas/search.py", "configs/__init__.py",
             "configs/deepmapping_paper.py"} <= names
+    assert {"models/__init__.py", "models/config.py", "models/layers.py",
+            "models/attention.py", "models/transformer.py", "configs/base.py",
+            "configs/tinyllama_1_1b.py", "configs/qwen2_7b.py", "configs/granite3_2b.py",
+            "configs/gemma3_1b.py", "configs/phi3_vision_4_2b.py",
+            "serve/serve_step.py"} <= names
 
 
 def test_chip_smoke_imports_none_of_the_forbidden_modules():
     for name in _imports(ROOT / "chip_smoke.py"):
         assert name.split(".")[0] not in (
-            "jax", "jaxlib", "repro", "benchmarks", "msgpack", "zstandard"), name
+            "jax", "jaxlib", "ml_dtypes", "repro", "benchmarks", "msgpack", "zstandard"), name

@@ -1,0 +1,460 @@
+"""The port's LM substrate (``repro_torch.models``, ``repro_torch.configs``)
+held against the reference's (``repro.models``, ``repro.configs``) on the
+CPU.
+
+Inputs are made with numpy from a seed; weights are the reference's
+``init`` carried over with ``params_from_numpy``.  fp32 logits and
+activations agree within ``TOL`` (1e-4 absolute and relative); one bf16
+case agrees within ``BF16_TOL``, with equal argmaxes wherever the
+reference's top-two margin clears twice that.  Every path of
+``gqa_apply`` is covered: flash, banded, decode and windowed decode.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import DecoderLM as JDecoderLM
+from repro.models import ModelConfig as JModelConfig
+from repro.models import attention as JA
+from repro.models import layers as JL
+from repro_torch import configs as tconfigs
+from repro_torch.core.convert import params_from_numpy
+from repro_torch.core.model import _leaves as tree_leaves
+from repro_torch.models import DecoderLM, ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from test_models import DECODE_EQUIV_CONFIGS
+
+#: fp32 logits: absolute and relative.
+TOL = 1e-4
+#: bf16 logits (four bf16 steps at magnitudes 2-4, where the smoke
+#: configs' largest logits lie): absolute and relative.  Argmaxes must
+#: agree where the reference's top-two margin is above 2 * BF16_TOL.
+BF16_TOL = 6.25e-2
+
+#: The five dense archs the port registers.
+DENSE_ARCHS = ("gemma3-1b", "granite-3-2b", "phi-3-vision-4.2b", "qwen2-7b", "tinyllama-1.1b")
+
+
+def cpu(tree):
+    return params_from_numpy(jax.device_get(tree), device="cpu")
+
+
+def close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got, dtype=np.float32),
+                               np.asarray(want, dtype=np.float32), rtol=tol, atol=tol)
+
+
+def tcfg_of(jcfg: JModelConfig) -> ModelConfig:
+    return ModelConfig(**dataclasses.asdict(jcfg))
+
+
+def equiv_config(name):
+    return next(c for c in DECODE_EQUIV_CONFIGS if c.name == name)
+
+
+def normal(rng, *shape, dtype=np.float32):
+    return rng.normal(size=shape).astype(dtype)
+
+
+#: The model configs held end to end: the five dense SMOKE configs and
+#: test_models.py's dense and windowed configs.
+MODEL_CASES = [(a, jconfigs.get_arch(a).smoke) for a in DENSE_ARCHS] + [
+    (n, equiv_config(n)) for n in ("dense", "windowed")]
+
+
+# ------------------------------------------------------------------ layers
+
+
+class TestLayers:
+    def test_rmsnorm(self):
+        rng = np.random.default_rng(0)
+        x, s = normal(rng, 2, 5, 16), normal(rng, 16)
+        for eps in (1e-6, 1e-5):
+            close(L.rmsnorm({"scale": torch.from_numpy(s)}, torch.from_numpy(x), eps),
+                  JL.rmsnorm({"scale": jnp.asarray(s)}, jnp.asarray(x), eps))
+
+    def test_rmsnorm_keeps_bf16(self):
+        rng = np.random.default_rng(1)
+        x = torch.from_numpy(normal(rng, 3, 8)).bfloat16()
+        y = L.rmsnorm({"scale": torch.ones(8, dtype=torch.bfloat16)}, x)
+        assert y.dtype == torch.bfloat16
+
+    @pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+    def test_apply_rope(self, theta):
+        rng = np.random.default_rng(2)
+        x = normal(rng, 2, 7, 3, 8)
+        pos = np.stack([np.arange(7), np.arange(7) + 100]).astype(np.int32)
+        close(L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta),
+              JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta))
+        close(L.rope_freqs(8, theta), JL.rope_freqs(8, theta))
+
+    def test_mlp(self):
+        rng = np.random.default_rng(3)
+        p = JL.mlp_init(jax.random.PRNGKey(0), 12, 20, jnp.float32)
+        x = normal(rng, 2, 4, 12)
+        close(L.mlp(cpu(p), torch.from_numpy(x)), JL.mlp(p, jnp.asarray(x)))
+
+    def test_dense_with_bias(self):
+        rng = np.random.default_rng(4)
+        p = JL.dense_init(jax.random.PRNGKey(1), 6, 5, jnp.float32, bias=True)
+        p = {"w": p["w"], "b": jnp.asarray(normal(rng, 5))}
+        x = normal(rng, 3, 6)
+        close(L.dense(cpu(p), torch.from_numpy(x)), JL.dense(p, jnp.asarray(x)))
+
+    @pytest.mark.parametrize("cap", [0.0, 30.0, 2.0])
+    def test_softcap(self, cap):
+        x = normal(np.random.default_rng(5), 4, 9) * 10
+        close(L.softcap(torch.from_numpy(x), cap), JL.softcap(jnp.asarray(x), cap))
+
+    def test_embed(self):
+        p = JL.embedding_init(jax.random.PRNGKey(2), 30, 8, jnp.float32)
+        ids = np.random.default_rng(6).integers(0, 30, (3, 5)).astype(np.int32)
+        got = L.embed(cpu(p), torch.from_numpy(ids))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(JL.embed(p, jnp.asarray(ids))))
+
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_cross_entropy_loss(self, masked):
+        rng = np.random.default_rng(7)
+        logits = normal(rng, 2, 6, 11) * 3
+        labels = rng.integers(0, 11, (2, 6)).astype(np.int32)
+        mask = (rng.random((2, 6)) < 0.6).astype(np.float32) if masked else None
+        got = L.cross_entropy_loss(torch.from_numpy(logits), torch.from_numpy(labels),
+                                   None if mask is None else torch.from_numpy(mask))
+        want = JL.cross_entropy_loss(jnp.asarray(logits), jnp.asarray(labels),
+                                     None if mask is None else jnp.asarray(mask))
+        close(got, want)
+
+    def test_inits_draw_the_reference_shapes_on_the_generator_device(self):
+        gen = torch.Generator().manual_seed(0)
+        p = L.mlp_init(gen, 12, 20, "bfloat16")
+        assert {k: tuple(v["w"].shape) for k, v in p.items()} == {
+            "gate": (12, 20), "up": (12, 20), "down": (20, 12)}
+        assert all(v["w"].dtype == torch.bfloat16 for v in p.values())
+        st = L.stacked_init(L.dense_init, gen, 3, 4, 5, "float32", bias=True)
+        assert st["w"].shape == (3, 4, 5) and st["b"].shape == (3, 5)
+        assert not torch.equal(st["w"][0], st["w"][1])
+        assert float(st["w"].std()) == pytest.approx((1 / 4) ** 0.5, rel=0.5)
+
+
+# --------------------------------------------------------------- attention
+
+
+def attn_inputs(seed, B=2, S=12, K=2, G=2, hd=8, T=None):
+    rng = np.random.default_rng(seed)
+    T = S if T is None else T
+    q, k, v = normal(rng, B, S, K, G, hd), normal(rng, B, T, K, hd), normal(rng, B, T, K, hd)
+    qpos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    kpos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+    return q, k, v, qpos, kpos
+
+
+class TestAttention:
+    @pytest.mark.parametrize("kv_chunk", [5, 64])
+    @pytest.mark.parametrize("window", [0, 4])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_flash_attend(self, kv_chunk, window, causal):
+        q, k, v, qpos, kpos = attn_inputs(10)
+        got = A._flash_attend(*map(torch.from_numpy, (q, k, v, qpos, kpos)), window, kv_chunk,
+                              causal=causal)
+        want = JA._flash_attend(*map(jnp.asarray, (q, k, v, qpos, kpos)), window, kv_chunk,
+                                causal=causal)
+        close(got, want)
+
+    def test_flash_attend_bf16_casts_back(self):
+        q, k, v, qpos, kpos = attn_inputs(11)
+        got = A._flash_attend(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                              torch.from_numpy(qpos), torch.from_numpy(kpos), 3, 4)
+        want = JA._flash_attend(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                jnp.asarray(qpos), jnp.asarray(kpos), 3, 4)
+        assert got.dtype == torch.bfloat16
+        close(got.float(), np.asarray(want.astype(jnp.float32)), tol=BF16_TOL)
+
+    def test_flash_attend_fully_masked_chunk_stays_finite(self):
+        # window 2 with chunks of 3: the first chunk is masked whole for
+        # the late queries; NEG_INF is finite, so their rows stay finite.
+        q, k, v, qpos, kpos = attn_inputs(12, S=9)
+        got = A._flash_attend(*map(torch.from_numpy, (q, k, v, qpos, kpos)), 2, 3)
+        assert torch.isfinite(got).all()
+        close(got, JA._flash_attend(*map(jnp.asarray, (q, k, v, qpos, kpos)), 2, 3))
+
+    @pytest.mark.parametrize("window", [3, 4])
+    def test_banded_attend(self, window):
+        q, k, v, pos, _ = attn_inputs(13, S=12)
+        got = A._banded_attend(*map(torch.from_numpy, (q, k, v, pos)), window)
+        want = JA._banded_attend(*map(jnp.asarray, (q, k, v, pos)), window)
+        close(got, want)
+
+    @pytest.mark.parametrize("window", [0, 3])
+    def test_decode_attend(self, window):
+        q, k, v, _, _ = attn_inputs(14, S=1, T=10)
+        length = np.array([7, 7], np.int32)
+        tq, tk, tv, tlen = map(torch.from_numpy, (q, k, v, length))
+        if window:
+            lo = np.maximum(length - window, 0)
+            mask_lo = np.arange(10)[None, :] >= lo[:, None]
+            got = A._decode_attend_window(tq, tk, tv, tlen, torch.from_numpy(mask_lo))
+            want = JA._decode_attend_window(*map(jnp.asarray, (q, k, v, length, mask_lo)))
+        else:
+            got = A._decode_attend(tq, tk, tv, tlen)
+            want = JA._decode_attend(*map(jnp.asarray, (q, k, v, length)))
+        close(got, want)
+
+    def gqa_case(self, qkv_bias, seed=20):
+        cfg = JModelConfig(name="g", family="dense", num_layers=1, d_model=32, num_heads=4,
+                           num_kv_heads=2, d_ff=64, vocab_size=10, qkv_bias=qkv_bias,
+                           dtype="float32", remat="none")
+        p = JA.gqa_init(jax.random.PRNGKey(seed), cfg)
+        if qkv_bias:  # the init's biases are zeros: give them values
+            rng = np.random.default_rng(seed)
+            for name in ("wq", "wk", "wv"):
+                p[name]["b"] = jnp.asarray(normal(rng, *p[name]["b"].shape))
+        return cfg, tcfg_of(cfg), p, cpu(p)
+
+    @pytest.mark.parametrize("qkv_bias", [False, True])
+    @pytest.mark.parametrize("path,window,S,kv_chunk", [
+        ("flash", 0, 13, 4), ("flash_windowed", 4, 13, 1024), ("banded", 4, 16, 1024)])
+    def test_gqa_apply_full_sequence(self, qkv_bias, path, window, S, kv_chunk):
+        jcfg, cfg, jp, tp = self.gqa_case(qkv_bias)
+        x = normal(np.random.default_rng(21), 2, S, 32)
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
+        got, gc = A.gqa_apply(tp, cfg, torch.from_numpy(x), torch.from_numpy(pos),
+                              window=window, kv_chunk=kv_chunk)
+        want, wc = JA.gqa_apply(jp, jcfg, jnp.asarray(x), jnp.asarray(pos), window=window,
+                                kv_chunk=kv_chunk)
+        assert gc is None and wc is None
+        close(got, want)
+
+    @pytest.mark.parametrize("qkv_bias", [False, True])
+    @pytest.mark.parametrize("window", [0, 3])
+    def test_gqa_apply_decode(self, qkv_bias, window):
+        jcfg, cfg, jp, tp = self.gqa_case(qkv_bias)
+        rng = np.random.default_rng(22)
+        jcache = JA.gqa_init_cache(jcfg, 2, 9)
+        tcache = A.gqa_init_cache(cfg, 2, 9, device="cpu")
+        for step in range(7):
+            x = normal(rng, 2, 1, 32)
+            pos = np.full((2, 1), step, np.int32)
+            got, tcache = A.gqa_apply(tp, cfg, torch.from_numpy(x), torch.from_numpy(pos),
+                                      window=window, cache=tcache)
+            want, jcache = JA.gqa_apply(jp, jcfg, jnp.asarray(x), jnp.asarray(pos),
+                                        window=window, cache=jcache)
+            close(got, want)
+        close(tcache["k"], jcache["k"])
+        close(tcache["v"], jcache["v"])
+        assert int(tcache["len"]) == int(jcache["len"]) == 7
+
+    def test_constrain_is_the_identity(self):
+        t = torch.zeros(2, 3)
+        assert A._constrain_batch_sharded(t, tcfg_of(equiv_config("dense"))) is t
+
+
+# -------------------------------------------------------------- the decoder
+
+
+def tokens(cfg, B=2, S=16, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+class TestDecoderLM:
+    @pytest.mark.parametrize("name,jcfg", MODEL_CASES, ids=[n for n, _ in MODEL_CASES])
+    def test_apply_matches_reference(self, name, jcfg):
+        jm, m = JDecoderLM(jcfg), DecoderLM(tcfg_of(jcfg))
+        jp = jm.init(0)
+        toks = tokens(jcfg)
+        prefix = None
+        if jcfg.modality == "vision":
+            prefix = normal(np.random.default_rng(1), 2, 4, jcfg.d_model)
+        want = jm.apply(jp, jnp.asarray(toks), remat=False,
+                        prefix_embeds=None if prefix is None else jnp.asarray(prefix))
+        got = m.apply(cpu(jp), torch.from_numpy(toks), remat=False,
+                      prefix_embeds=None if prefix is None else torch.from_numpy(prefix))
+        assert got.shape == want.shape == (2, 16, jcfg.vocab_size)
+        close(got, want)
+
+    def test_prefix_embeds_change_the_logits(self):
+        jcfg = jconfigs.get_arch("phi-3-vision-4.2b").smoke
+        m = DecoderLM(tcfg_of(jcfg))
+        p = cpu(JDecoderLM(jcfg).init(0))
+        toks = torch.from_numpy(tokens(jcfg))
+        prefix = torch.from_numpy(normal(np.random.default_rng(2), 2, 4, jcfg.d_model))
+        plain, pre = m.apply(p, toks), m.apply(p, toks, prefix_embeds=prefix)
+        assert not torch.allclose(plain[:, :4], pre[:, :4])
+
+    def test_remat_gives_the_same_logits_and_gradients(self):
+        jcfg = jconfigs.get_arch("gemma3-1b").smoke
+        m = DecoderLM(tcfg_of(jcfg))
+        toks = torch.from_numpy(tokens(jcfg))
+        outs = []
+        for remat in (False, True):
+            p = cpu(JDecoderLM(jcfg).init(0))
+            w = p["segments"][0]["groups"][0]["attn"]["wq"]["w"].requires_grad_()
+            lg = m.apply(p, toks, remat=remat)
+            lg.square().mean().backward()
+            outs.append((lg.detach(), w.grad))
+        close(outs[1][0], outs[0][0])
+        close(outs[1][1], outs[0][1])
+
+    @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-7b"])
+    def test_bf16_smoke_matches_reference(self, arch):
+        jcfg = dataclasses.replace(jconfigs.get_arch(arch).smoke, dtype="bfloat16")
+        jm, m = JDecoderLM(jcfg), DecoderLM(tcfg_of(jcfg))
+        jp = jm.init(0)
+        tp = cpu(jp)
+        assert tp["embed"]["table"].dtype == torch.bfloat16
+        toks = tokens(jcfg)
+        want = np.asarray(jm.apply(jp, jnp.asarray(toks), remat=False).astype(jnp.float32))
+        got = m.apply(tp, torch.from_numpy(toks), remat=False)
+        assert got.dtype == torch.bfloat16
+        got = got.float().numpy()
+        close(got, want, tol=BF16_TOL)
+        top2 = np.sort(want, axis=-1)[..., -2:]
+        clear = top2[..., 1] - top2[..., 0] > 2 * BF16_TOL
+        assert clear.any()
+        np.testing.assert_array_equal(got.argmax(-1)[clear], want.argmax(-1)[clear])
+
+    def test_vocab_pad_mask(self):
+        jcfg = dataclasses.replace(equiv_config("dense"), vocab_pad_multiple=16)
+        jm, m = JDecoderLM(jcfg), DecoderLM(tcfg_of(jcfg))
+        assert m.padded_vocab == jm.padded_vocab == 64
+        jp = jm.init(0)
+        toks = tokens(jcfg)
+        got = m.apply(cpu(jp), torch.from_numpy(toks))
+        close(got, jm.apply(jp, jnp.asarray(toks)))
+        assert bool((got[..., 50:] == -1e9).all())
+
+    def test_softcap_config(self):
+        jcfg = dataclasses.replace(equiv_config("windowed"), logit_softcap=3.0)
+        jm, m = JDecoderLM(jcfg), DecoderLM(tcfg_of(jcfg))
+        jp = jm.init(0)
+        toks = tokens(jcfg)
+        got = m.apply(cpu(jp), torch.from_numpy(toks))
+        close(got, jm.apply(jp, jnp.asarray(toks)))
+        assert float(got.abs().max()) <= 3.0
+
+
+class TestParamTree:
+    @staticmethod
+    def layout(tree):
+        """{path: (shape, dtype name)} of every leaf; None subtrees kept."""
+        out = {}
+
+        def walk(t, path):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, path + (k,))
+            elif isinstance(t, (list, tuple)):
+                for i, v in enumerate(t):
+                    walk(v, path + (i,))
+            elif t is None:
+                out[path] = None
+            else:
+                out[path] = (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+        walk(tree, ())
+        return out
+
+    @pytest.mark.parametrize("name,jcfg", MODEL_CASES + [
+        ("tinyllama-bf16", dataclasses.replace(jconfigs.get_arch("tinyllama-1.1b").smoke,
+                                               dtype="bfloat16"))],
+        ids=[n for n, _ in MODEL_CASES] + ["tinyllama-bf16"])
+    def test_init_tree_is_the_reference_layout(self, name, jcfg):
+        cfg = tcfg_of(jcfg)
+        got = DecoderLM(cfg).init(seed=3, device="cpu")
+        want = jax.device_get(JDecoderLM(jcfg).init(0))
+        assert self.layout(got) == self.layout(want)
+        n = sum(t.numel() for t in _leaves(got))
+        assert n == sum(int(np.prod(a.shape)) for a in _leaves(want))
+        # seeded: the same draws again, other draws from another seed
+        again = DecoderLM(cfg).init(seed=3, device="cpu")
+        other = DecoderLM(cfg).init(seed=4, device="cpu")
+        assert torch.equal(again["embed"]["table"], got["embed"]["table"])
+        assert not torch.equal(other["embed"]["table"], got["embed"]["table"])
+
+    @pytest.mark.parametrize("name,jcfg", MODEL_CASES, ids=[n for n, _ in MODEL_CASES])
+    def test_param_count_estimate_against_the_tree(self, name, jcfg):
+        """The estimate leaves out the norms' scales (two a layer, one
+        final) and the qkv biases; with those added it is the tree's size."""
+        cfg = tcfg_of(jcfg)
+        assert cfg.param_count_estimate() == jcfg.param_count_estimate()
+        tree = DecoderLM(cfg).init(seed=0, device="cpu")
+        n = sum(t.numel() for t in _leaves(tree))
+        norms = (2 * cfg.num_layers + 1) * cfg.d_model
+        bias = cfg.num_layers * (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim \
+            if cfg.qkv_bias else 0
+        assert n == cfg.param_count_estimate() + norms + bias
+
+    def test_the_group_dimension_leads(self):
+        cfg = tcfg_of(jconfigs.get_arch("gemma3-1b").smoke)
+        tree = DecoderLM(cfg).init(seed=0, device="cpu")
+        seg = tree["segments"][0]
+        assert len(seg["groups"]) == 6 and len(seg["remainder"]) == 2
+        assert seg["groups"][0]["attn"]["wq"]["w"].shape == (1, 48, 48)
+        one = DecoderLM(tcfg_of(equiv_config("dense"))).init(seed=0, device="cpu")
+        assert one["segments"][0]["groups"][0]["ffn"]["gate"]["w"].shape == (3, 32, 64)
+
+
+def _leaves(tree):
+    """The tree's array leaves (``None`` subtrees left out)."""
+    return [t for t in tree_leaves(tree) if t is not None]
+
+
+class TestNotPortedYet:
+    @pytest.mark.parametrize("name", ["rwkv", "rglru", "mla"])
+    def test_other_block_kinds_raise(self, name):
+        with pytest.raises(NotImplementedError, match="M12c"):
+            DecoderLM(tcfg_of(equiv_config(name)))
+
+    def test_moe_ffn_raises(self):
+        cfg = ModelConfig(name="moe", family="moe", num_layers=2, d_model=16, num_heads=2,
+                          num_kv_heads=2, d_ff=32, vocab_size=20, num_experts=4,
+                          experts_per_token=2, moe_d_ff=8, dtype="float32")
+        with pytest.raises(NotImplementedError, match="MoE FFN.*M12c"):
+            DecoderLM(cfg)
+        with pytest.raises(NotImplementedError, match="M12c"):
+            T._block_init(torch.Generator(), cfg, "attn", True)
+
+
+# ---------------------------------------------------------------- registry
+
+
+class TestRegistry:
+    def test_list_archs_is_the_references_dense_five(self):
+        assert tconfigs.list_archs() == tuple(
+            a for a in jconfigs.list_archs() if a in DENSE_ARCHS)
+        assert tconfigs.list_archs() == DENSE_ARCHS
+        assert tconfigs.SHAPES == jconfigs.SHAPES
+
+    @pytest.mark.parametrize("arch", DENSE_ARCHS)
+    def test_configs_field_for_field(self, arch):
+        got, want = tconfigs.get_arch(arch), jconfigs.get_arch(arch)
+        assert got.arch_id == want.arch_id and got.shapes == want.shapes
+        assert got.notes == want.notes
+        assert dataclasses.asdict(got.config) == dataclasses.asdict(want.config)
+        assert dataclasses.asdict(got.smoke) == dataclasses.asdict(want.smoke)
+        assert [f.name for f in dataclasses.fields(ModelConfig)] == [
+            f.name for f in dataclasses.fields(JModelConfig)]
+        for prop in ("is_moe", "layer_window", "layer_blocks"):
+            assert getattr(got.config, prop) == getattr(want.config, prop)
+        assert got.config.param_count_estimate() == want.config.param_count_estimate()
+        assert got.config.active_param_count_estimate() == \
+            want.config.active_param_count_estimate()
+
+    def test_plan_segments_is_the_references(self):
+        from repro.models import transformer as JT
+        for jcfg in [jconfigs.get_arch(a).config for a in DENSE_ARCHS] + [
+                c for c in DECODE_EQUIV_CONFIGS]:
+            assert [dataclasses.asdict(s) for s in T.plan_segments(tcfg_of(jcfg))] == [
+                dataclasses.asdict(s) for s in JT.plan_segments(jcfg)]
+
+    def test_unknown_and_duplicate_arch(self):
+        with pytest.raises(KeyError, match="unknown arch"):
+            tconfigs.get_arch("deepseek-v3-671b")
+        with pytest.raises(ValueError, match="duplicate"):
+            tconfigs.base.register(tconfigs.get_arch("gemma3-1b"))
