@@ -73,7 +73,28 @@ on them against its plain PyTorch version on the card:
                 a 1,024-token fp32 prefill, banded on its windowed layers,
                 against the windowed decode of the same tokens within
                 2e-3;
-7. mhas_search — MHAS (Algorithm 2, ``run_mhas``) over the same table
+7. lm_train   — the LM substrate's training path (ROADMAP M12b): the
+                launcher ``repro_torch.launch.train.main`` on tinyllama-1.1b
+                at full width and depth in bf16 (its batch of 8 x 65
+                tokens, AdamW with warmup-cosine and clip 1.0, remat) with
+                ``--compressed-data``: the DeepMapping token store built
+                over its 200,000-token corpus (a 19,057-way head; T_aux
+                found through K2) and every batch looked up through it
+                (K1 on the fused tier); 4 steps and a 6.6 GB
+                checkpoint, then the launcher again without the store to
+                10 steps: resumed from ``LATEST``, the restored state
+                equal bit for bit to that checkpoint's ``arrays.npz``,
+                every loss finite, no restart, and the restored state's
+                loss on the batch of its last step below the loss that
+                step recorded; ``make_train_step`` at 4 x 2,049 tokens
+                (ms a step, tokens/s, peak device memory, the model FLOPs'
+                share of the bf16 peak, the bf16 loss against fp32 on the
+                same weights, at the first step and after the steps);
+                then the store lossless on every position, the
+                launcher's batches through it equal to the raw ones, and
+                K1 and K2 on its model against their plain versions on
+                every position (codes equal but on near ties, counted);
+8. mhas_search — MHAS (Algorithm 2, ``run_mhas``) over the same table
                 under the port's ``PAPER_MHAS`` at the paper's layer
                 sizes (100 to 2,000, depth 2), batches (16,384 and 2,048),
                 8 samples a controller update and learning rates, its
@@ -89,7 +110,7 @@ on them against its plain PyTorch version on the card:
                 build and at lookup, and the path's launches equal to
                 those tiers'; then K1 and K2 on its model against their
                 plain versions, and the bank freed;
-8. train      — the same table built with no weights: the store trains
+9. train      — the same table built with no weights: the store trains
                 at the paper's width and ``TrainConfig`` (batch 16,384,
                 up to 200 epochs), evaluates T_aux through K2 and answers
                 every key losslessly through K1; a few training steps
@@ -97,14 +118,14 @@ on them against its plain PyTorch version on the card:
                 session: one CUDA kernel a call on contiguous keys, and
                 the call's split (word upload, kernels, wall; its own
                 JSON line, ``bitvector_profile``);
-9. persist    — the trained store saved by the port in the reference's
+10. persist   — the trained store saved by the port in the reference's
                 v2 layout and reopened through ``repro_torch.open``:
                 every SF1 key plus 100,000 absent and 2,000
                 out-of-capacity keys answer byte for byte as before the
                 save and losslessly; a bit flipped in ``vexist.bin``
                 raises ``IntegrityError``; save, load and first-lookup
                 seconds and each artifact's bytes;
-10. query      — nine plans through ``store.query()`` on the reopened
+11. query      — nine plans through ``store.query()`` on the reopened
                 store (a projected ``where_keys`` on 65,536 keys, a
                 ``scan`` with a ``where`` conjunction on two heads, a
                 ``where_range``, a count-only ``group_by``, a self-join
@@ -118,11 +139,12 @@ on them against its plain PyTorch version on the card:
                 main store after its mutations.  K1 must run with
                 predicate tables and every ``where`` plan must report
                 ``kernel_filtered``;
-11. cluster   — the reference's default cluster (``ClusterConfig()``:
+12. cluster   — the reference's default cluster (``ClusterConfig()``:
                 4 range shards) over the same SF1 table, every shard
                 trained on the card with the train phase's config through
                 ``repro_torch.build(..., cluster=...)``, one shard at a
-                time and for at most 110 epochs (both cut for time),
+                time and for at most 120 epochs (``CL_EPOCHS``; both cut
+                for time),
                 then served under the default config; the default
                 build (shards on four threads at once) over a
                 187,500-row prefix, every key looked up, and
@@ -134,7 +156,8 @@ on them against its plain PyTorch version on the card:
                 single store; the query phase's nine plans against their
                 oracles and ``pushdown(False)``; 10,000 mutations in the
                 last shard's range and a retrain of the shard they
-                dirtied; save and reopen through ``repro_torch.open``; a
+                dirtied (at most 40 epochs, ``CL_RETRAIN_EPOCHS``, cut for
+                time); save and reopen through ``repro_torch.open``; a
                 replicate (round robin) and a partition federation with
                 an AB baseline, member 0 killed in the replicate one; one
                 shard fault retried, one dead shard surfacing as
@@ -142,7 +165,7 @@ on them against its plain PyTorch version on the card:
                 ``aux.msgpack`` refused, then quarantined with the healthy
                 shards serving.  Every plan without an injected fault
                 retries nothing;
-12. serve     — the batched ``LookupServer`` over the train phase's
+13. serve     — the batched ``LookupServer`` over the train phase's
                 store and the cluster (after its mutations): 2,048
                 requests of 1 to 4,096 keys (log-uniform), Zipf-skewed
                 (s = 1.1) over the present keys with 5% absent and 1%
@@ -164,7 +187,7 @@ on them against its plain PyTorch version on the card:
                 reopens the save and serves again; every request found,
                 the store lossless.  The path's launches are read before
                 the checks that look keys up outside the servers;
-13. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
+14. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
                 rows under the reference benchmark's DM-R config,
                 trained on the card through ``repro_torch.build``: every
                 key lossless, absent and out-of-capacity keys absent; the
@@ -175,7 +198,7 @@ on them against its plain PyTorch version on the card:
                 through ``repro_torch.open`` with the same answers; K1
                 (with and without predicate tables) and K2 on the store's
                 model and residue features against their plain versions;
-14. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
+15. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
                 under DM-R (20 epochs, cut for time), with two key
                 choices: (key, credit rating),
                 whose packed domain fits int32 (K1), and (key, purchase
@@ -183,7 +206,7 @@ on them against its plain PyTorch version on the card:
                 lossless on every row, unknown combinations absent; each
                 choice's kernel on its store's model against its plain
                 version;
-15. baselines — every AB/HB factory of the paper (§V-A3) on
+16. baselines — every AB/HB factory of the paper (§V-A3) on
                 ``customer_demographics`` (HBC-L on its first 960,400
                 rows, cut for time) and on SF1 ``orders``: exact on
                 100,000 present and 50,000 absent keys, saved, reopened
@@ -193,11 +216,11 @@ on them against its plain PyTorch version on the card:
                 stores probed the same way.  Baselines are host code:
                 they build in a pool of spawned workers (never forked
                 from the process that holds the CUDA context), one per
-                core but two, started before phase 13 and running beside
-                phases 13 and 14; a hash store's reopened lookup is timed
+                core but two, started before phase 14 and running beside
+                phases 14 and 15; a hash store's reopened lookup is timed
                 in its worker, an array store's in the main process once
                 at most one worker is left (and again alone if one was);
-16. times     — kernel and plain-version times with CUDA events, the
+17. times     — kernel and plain-version times with CUDA events, the
                 kernels' bounds, K3's two instantiations at 65,536 keys
                 and at its largest call (one launch, a run of 100, L2
                 flushed) beside the launch floor, K1/K2 under each plan
@@ -207,15 +230,17 @@ on them against its plain PyTorch version on the card:
 
 Each kernel's launches are counted on every path that drives the port
 (the MHAS children of phase 2 through K2 as path ``mhas`` and through
-their engines as ``mhas_engine``, and phases 3 to 15, the search
+their engines as ``mhas_engine``, and phases 3 to 16, the search
 and its store as ``mhas_search``), with
 the counts set to 0 just before each path and read just after; K1's
 launches that carried predicate tables are counted apart.  The launches
 made to compare a kernel with its plain version (the rest of phase 2,
-and in phases 7, 13 and 14 after their counts are read) and those of
-phase 16 do not count.  The LM path of phase 6 launches none of the
-three kernels (the reference's LM path reaches no Pallas kernel); its
-counts, all 0, are read as path ``lm_serve``.
+and in phases 7, 8, 14 and 15 after their counts are read) and those of
+phase 17 do not count.  The LM serving path of phase 6 launches none of
+the three kernels (the reference's LM path reaches no Pallas kernel);
+its counts, all 0, are read as path ``lm_serve``.  The LM training path
+of phase 7 launches K1 through the token store and K2 in its build (path
+``lm_train``).
 Each phase prints one JSON line with its seconds (``phase_s``); any
 failed check raises (non-zero exit).  The last lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -238,17 +263,20 @@ import argparse
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import json
 import multiprocessing
 import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import threading
 import time
 import warnings
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -316,7 +344,8 @@ LAUNCH_REQUESTS = 100
 #: SF1 cluster itself trains one shard at a time).
 CL_THREADED_ROWS, CL_THREADED_EPOCHS = 187_500, 20
 #: Epochs at most of the SF1 cluster's shard trainings (its one-thread
-#: build and the retrain): PAPER_STORE's 200 capped, cut for the smoke's
+#: build; its retrain is capped again at CL_RETRAIN_EPOCHS): PAPER_STORE's
+#: 200 capped, cut for the smoke's
 #: time to pay for the lm_serve phase.  Uncapped, the shards stop early
 #: after 118-144 epochs, so some still stop early under this cap.  Every
 #: shard stays lossless whatever its epochs, since T_aux corrects the
@@ -360,6 +389,40 @@ LM_WINDOW_LAYERS, LM_WINDOW_TOKENS = 8, 1024
 #: equal the fp32 run's on at least LM_AGREE of the rows whose fp32
 #: top-two margin is at least LM_MARGIN.
 LM_TOL, LM_MARGIN, LM_AGREE = 2e-3, 0.1, 0.99
+#: The lm_train phase (LM training and the token store, ROADMAP M12b):
+#: the training launcher on tinyllama-1.1b at full width and depth under
+#: its own defaults (bf16, 8 sequences of 64 + 1 tokens, AdamW with
+#: warmup_cosine(3e-3, 10, steps) and clip 1.0), first over the token
+#: store for LM_TRAIN_STEPS[0] steps, then resumed from its checkpoint
+#: over the raw corpus to LM_TRAIN_STEPS[1] steps (both cut for time:
+#: each save writes 6.6 GB); then make_train_step's throughput at
+#: LM_TRAIN_SHAPE (sequences, tokens + 1) over the token store, one
+#: warm-up step and LM_TRAIN_TIMED timed ones; the bf16 loss within
+#: LM_LOSS_TOL of the fp32 loss on the same weights and batch, at the
+#: first step and on the trained weights. On an H100 the gap was at most
+#: 5.5e-4 in size over 18 such pairs, at the initial weights and after
+#: the steps, seeds 0-2 (``tools/lm_train_curves.py --loss-gap``). K1
+#: and K2 on the store's model against their plain versions on every
+#: position, in chunks of LM_K1_CHUNK keys. The corpus is the launcher's
+#: (200,000 tokens).
+LM_TRAIN_STEPS = (4, 10)
+LM_TRAIN_SHAPE, LM_TRAIN_TIMED = (4, 2048), 2
+LM_LOSS_TOL = 1e-3
+#: The least drop of the trained batch's loss (the restored state against
+#: the loss its step recorded): numerics move a same-batch loss by about
+#: 1e-5; on an H100 one AdamW update at lr 3e-4 took a repeated batch's
+#: loss from 10.87 to 3.67 (``tools/lm_train_curves.py``, ``repeated_10``).
+LM_TRAINED_DROP = 0.1
+LM_K1_CHUNK = 32_768
+LM_CORPUS = 200_000
+#: bf16 tensor-core peak of one H100 SXM (data sheet, dense).
+PEAK_BF16_FLOPS = 989e12
+#: Epochs at most of the SF1 cluster's one retrain (of the shard the
+#: mutations dirtied): CL_EPOCHS capped again, cut for the smoke's time
+#: to pay for the lm_train phase (the retrain took 45.7 s at 120 epochs
+#: on an H100).  The shard stays lossless, since its T_aux corrects the
+#: model it deploys.
+CL_RETRAIN_EPOCHS = 40
 
 RECORD: dict = {}
 
@@ -967,9 +1030,10 @@ def mhas_engine_check(served, encoder, keys, dev) -> list:
 
 
 class CallTimer:
-    """Wraps functions looked up through their modules at call time
-    (``(module, name)`` pairs): each call is timed between two device
-    syncs and counted; ``with`` restores them."""
+    """Wraps functions looked up through their modules or classes at call
+    time (``(module, name)`` pairs, with an optional function of the
+    result to keep): each call is timed between two device syncs and
+    counted; ``with`` restores them."""
 
     def __init__(self, targets, sync):
         self.targets, self.sync = targets, sync
@@ -994,7 +1058,8 @@ class CallTimer:
         self.saved = []
         for mod, name, *keep in self.targets:
             fn = getattr(mod, name)
-            self.saved.append((mod, name, fn))
+            # the attribute as stored (a classmethod stays one on exit)
+            self.saved.append((mod, name, inspect.getattr_static(mod, name)))
             setattr(mod, name, self._wrap(name, fn, keep[0] if keep else None))
         return self
 
@@ -1367,6 +1432,340 @@ def lm_serve_phase(dev, seed: int) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return rec
+
+
+def npz_arrays(path) -> dict:
+    """``{key: array}`` of an uncompressed ``.npz`` as memory maps of its
+    members' data (what ``np.savez`` stores, read with no copy and no
+    crc32 pass, which took most of a 6.6 GB comparison); copy-on-write,
+    so ``torch.from_numpy`` takes them as they are and the file is never
+    written."""
+    import numpy as np
+
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            check(info.compress_type == zipfile.ZIP_STORED, f"{path}: a compressed member")
+            f.seek(info.header_offset + 26)  # the local header's name and extra lengths
+            n_name, n_extra = struct.unpack("<HH", f.read(4))
+            f.seek(info.header_offset + 30 + n_name + n_extra)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            check(not fortran, f"{path}: {info.filename} is in Fortran order")
+            out[info.filename[:-len(".npy")]] = np.memmap(
+                path, dtype=dtype, mode="c", offset=f.tell(), shape=shape)
+    return out
+
+
+def lm_train_phase(dev, seed: int, read_launches) -> tuple:
+    """The LM substrate's training path (ROADMAP M12b) at full width:
+
+    (a) ``repro_torch.launch.train.main`` on tinyllama-1.1b (22 layers,
+        d_model 2,048, bf16, the launcher's batch and optimizer) with
+        ``--compressed-data`` for LM_TRAIN_STEPS[0] steps: the token store
+        is built over the launcher's 200,000-token corpus (its deployed
+        engine finds the T_aux rows, through K2 as every build does) and
+        every batch is looked up through it (K1 on the fused tier); the
+        run saves its state at its end.
+        Then again without ``--compressed-data`` to LM_TRAIN_STEPS[1]
+        steps: it must resume from ``LATEST``, the restored state equal
+        bit for bit to that checkpoint's ``arrays.npz``; every loss
+        finite, no restart, and the restored state's loss on the batch of
+        step LM_TRAIN_STEPS[0] - 1 at least LM_TRAINED_DROP below the loss
+        that step recorded before its update;
+    (c) ``make_train_step`` on the same arch from a fresh ``init_state``
+        at LM_TRAIN_SHAPE, batches from the token store: one warm-up and
+        LM_TRAIN_TIMED timed steps (ms, tokens/s, peak device memory, the
+        model FLOPs' share of the bf16 peak); the bf16 loss against the
+        fp32 loss of the same weights and batch, at the warm-up step and
+        on the trained weights and the last step's batch (where the
+        logits are no longer near uniform), both within LM_LOSS_TOL;
+
+    then the path's launches are read, and
+
+    (b) the token store: every position looked up equals the corpus; the
+        launcher's loader through the store equals it through the raw
+        tokens on every step (a) ran; K1 on the store's own model (a
+        19,057-way head), and K2 on the digits K1 makes, each against its
+        plain version on every position, codes equal but on near ties
+        (plain top-two margin below MARGIN_TOL), with the near-tie rows
+        counted; K1's time on one chunk beside its plain version and
+        bound.
+
+    Returns ``(record, launches)``.  The checkpoints go under the ignored
+    ``build/`` and are removed however the phase ends."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import trainer as trainer_lib
+    from repro_torch.core.model import _map_tree
+    from repro_torch.data import tokens as tokens_lib
+    from repro_torch.data.loader import LoaderConfig, TokenBatchLoader
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.layers import _dtype
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+    from repro_torch.train.train_step import init_state, make_loss_fn, make_train_step
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    S1, S2 = LM_TRAIN_STEPS
+    arch = get_arch(LM_ARCH)
+    cfg = arch.config
+    check(cfg.dtype == "bfloat16" and cfg.remat != "none",
+          f"{LM_ARCH}: the launcher's config is not bf16 with remat")
+    corpus = tokens_lib.make_structured_tokens(LM_CORPUS, vocab=cfg.vocab_size, run_len=8,
+                                               seed=0)
+    rec: dict = {"arch": LM_ARCH, "config": {k: getattr(cfg, k) for k in (
+        "num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff", "vocab_size",
+        "dtype", "remat")}, "steps": [S1, S2], "corpus_tokens": LM_CORPUS,
+        "distinct_tokens": int(np.unique(corpus).size)}
+    ckpt_dir = ROOT / "build" / f"chip_smoke_lm_{os.getpid()}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = ["--arch", LM_ARCH, "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(S2 + 1),
+            "--device", str(dev)]
+    try:
+        # (a) the launcher twice: over the token store, then resumed.
+        timer = CallTimer([
+            (tokens_lib.DeepMappingTokenStore, "build"),
+            (trainer_lib, "train", lambda out: (len(out[2]), int(out[1].step), out[2][-1])),
+            (ckpt_lib.AsyncCheckpointer, "save"),
+            (ckpt_lib, "save_checkpoint"),
+            (ckpt_lib, "restore_latest", lambda out: out),
+        ], sync)
+        with timer:
+            t0 = time.perf_counter()
+            rep1, store = launcher.main(argv + ["--compressed-data", "--steps", str(S1)])
+            sync()
+            run1_s = time.perf_counter() - t0
+            ck_dir = ckpt_dir / f"step_{S1:08d}"
+            ck_bytes = {f.name: f.stat().st_size for f in sorted(ck_dir.iterdir())}
+            t0 = time.perf_counter()
+            rep2, no_store = launcher.main(argv + ["--steps", str(S2)])
+            sync()
+            run2_s = time.perf_counter() - t0
+        check(store is not None and no_store is None, "lm_train: the launcher returned no store, "
+              "or one without --compressed-data")
+        check(rep1.final_step == S1 and rep1.steps_run == S1 and rep1.restarts == 0,
+              f"lm_train: run 1 ended at {rep1.final_step} after {rep1.steps_run} steps")
+        check(rep2.final_step == S2 and rep2.steps_run == S2 - S1 and rep2.restarts == 0,
+              f"lm_train: the resumed run ended at {rep2.final_step} after {rep2.steps_run} "
+              f"steps, {rep2.restarts} restarts")
+        losses = rep1.losses + rep2.losses
+        check(all(np.isfinite(losses)), f"lm_train: a loss is not finite: {losses}")
+        restores = timer.results["restore_latest"]
+        check(len(restores) == 2 and restores[0] == (None, None) and restores[1][0] == S1,
+              f"lm_train: the restores found {[r[0] for r in restores]}, not [None, {S1}]")
+        restored = restores[1][1]
+        timer.results["restore_latest"].clear()
+        # The restored state against the checkpoint's arrays, bit for bit.
+        t0 = time.perf_counter()
+        arrays = npz_arrays(ck_dir / "arrays.npz")
+        n_leaves = [0]
+
+        def same(key, t):
+            n_leaves[0] += 1
+            arr = arrays[key]
+            bf16 = arr.dtype == np.dtype("V2")
+            want = torch.from_numpy(arr.view(np.int16) if bf16 else arr).to(t.device)
+            got = t.detach().view(torch.int16) if t.dtype == torch.bfloat16 else t.detach()
+            check(bf16 == (t.dtype == torch.bfloat16) and got.dtype == want.dtype
+                  and torch.equal(got, want),
+                  f"lm_train: restored leaf {key} differs from arrays.npz")
+
+        ckpt_lib._rebuild(restored, same)
+        check(n_leaves[0] == len(arrays), f"lm_train: {n_leaves[0]} restored leaves against "
+              f"{len(arrays)} arrays")
+        del arrays
+        compare_s = time.perf_counter() - t0
+        # The steps trained: the restored state's loss on the batch of step
+        # S1 - 1 against the loss that step recorded before its update.  (A
+        # fresh batch's loss cannot show it in a few steps: each holds about
+        # 65 of the corpus' 19,057 tokens, and what the model learns first is
+        # per token.)
+        lcfg = LoaderConfig(global_batch=8, seq_len=64, seed=0)  # the launcher's loader
+        seen = {"tokens": torch.from_numpy(TokenBatchLoader(lcfg, tokens=corpus).batch_for_step(
+            S1 - 1)["tokens"]).to(dev)}
+        with torch.no_grad():
+            seen_loss = float(make_loss_fn(cfg)[0](restored.params, seen))
+        check(seen_loss < rep1.losses[-1] - LM_TRAINED_DROP,
+              f"lm_train: the restored state's loss on step {S1 - 1}'s batch is {seen_loss}, "
+              f"not below the {rep1.losses[-1]} that step recorded by {LM_TRAINED_DROP}")
+        del restored, restores
+        manifest = json.loads((ck_dir / "manifest.json").read_text())
+        epochs, store_steps, last_loss = timer.results["train"][0]
+        rec["launcher"] = {
+            "run1": {"steps": S1, "wall_s": run1_s, "losses": rep1.losses,
+                     "stragglers": len(rep1.straggler_events)},
+            "run2": {"steps": S2, "resumed_from": S1, "wall_s": run2_s, "losses": rep2.losses,
+                     "stragglers": len(rep2.straggler_events)},
+            "loss_first_last": [losses[0], losses[-1]], "restarts": 0,
+            "trained_batch": {"step": S1 - 1, "loss_at_step": rep1.losses[-1],
+                              "loss_after": seen_loss, "need_drop": LM_TRAINED_DROP},
+            "checkpoint": {"bytes": ck_bytes, "arrays": len(manifest["arrays"]),
+                           "bf16_arrays": sum(v["dtype"] == "bfloat16"
+                                              for v in manifest["arrays"].values()),
+                           "snapshot_s": timer.seconds["save"],
+                           "write_s": timer.seconds["save_checkpoint"],
+                           "saves": timer.calls["save_checkpoint"],
+                           "restore_s": timer.seconds["restore_latest"],
+                           "restored_equal_bits": True, "compare_s": compare_s},
+        }
+        eng = store.store.engine
+        build_stats = {k: getattr(eng.stats, k) for k in (
+            "dispatches", "fused_calls", "pallas_calls", "fused_streamed_calls", "jit_calls")}
+
+        # (c) the train step at a realistic shape, batches from the store.
+        Bt, St = LM_TRAIN_SHAPE
+        loader = TokenBatchLoader(LoaderConfig(global_batch=Bt, seq_len=St, seed=seed),
+                                  store=store)
+        batches = [{"tokens": torch.from_numpy(loader.batch_for_step(k)["tokens"]).to(dev)}
+                   for k in range(1 + LM_TRAIN_TIMED)]
+        opt = adamw(lr=warmup_cosine(3e-3, 10, 1 + LM_TRAIN_TIMED), max_grad_norm=1.0)
+        state = init_state(cfg, opt, seed=seed, device=dev)
+        loss16_fn = make_loss_fn(cfg)[0]
+        loss32_fn = make_loss_fn(dataclasses.replace(cfg, dtype="float32"))[0]
+
+        def fp32_loss(params, batch):
+            with torch.no_grad():
+                return float(loss32_fn(_map_tree(params, lambda t: t.float()), batch))
+
+        loss32 = fp32_loss(state.params, batches[0])
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(cfg, opt)
+        step_s, step_losses = [], []
+        for b in batches:
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            step_losses.append(float(metrics["loss"]))
+            sync()
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        check(all(np.isfinite(step_losses)), f"lm_train: a train-step loss is not finite")
+        check(abs(step_losses[0] - loss32) <= LM_LOSS_TOL,
+              f"lm_train: bf16 loss {step_losses[0]} against fp32 {loss32}")
+        # The same on the trained weights and the batch the last step
+        # trained on, where the model's output is no longer uniform (at
+        # random weights the loss sits near ln V whatever the precision).
+        with torch.no_grad():
+            trained16 = float(loss16_fn(state.params, batches[-1]))
+        trained32 = fp32_loss(state.params, batches[-1])
+        check(abs(trained16 - trained32) <= LM_LOSS_TOL,
+              f"lm_train: trained bf16 loss {trained16} against fp32 {trained32}")
+        # Model FLOPs: 6 per matmul weight and token (forward and
+        # backward; remat's recompute not counted), and causal attention's
+        # two products, 6 B S^2 H hd a layer.
+        n_tok = Bt * (St + 1)
+        d, hd = cfg.d_model, cfg.head_dim
+        n_mm = cfg.num_layers * (2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+                                 + 3 * d * cfg.d_ff) + d * cfg.vocab_size
+        flops = 6 * n_mm * n_tok + 6 * Bt * (St + 1) ** 2 * cfg.num_heads * hd * cfg.num_layers
+        timed_s = statistics.median(step_s[1:])
+        rec["train_step"] = {
+            "sequences": Bt, "tokens_per_sequence": St + 1, "steps_timed": LM_TRAIN_TIMED,
+            "step_s": step_s, "ms_per_step": timed_s * 1e3, "tokens_per_s": n_tok / timed_s,
+            "peak_device_bytes": peak, "model_flops": flops,
+            "bf16_peak_share": flops / timed_s / PEAK_BF16_FLOPS, "losses": step_losses,
+            "loss_fp32": loss32, "loss_bf16_minus_fp32": step_losses[0] - loss32,
+            "trained_loss": {"batch": LM_TRAIN_TIMED, "bf16": trained16, "fp32": trained32,
+                             "bf16_minus_fp32": trained16 - trained32},
+            "loss_tol": LM_LOSS_TOL, "dtype": str(_dtype(cfg.dtype)),
+        }
+        del state, batches, metrics
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        launches = read_launches()
+        lookups = store.lookups
+        check(launches["fused_lookup"] > 0, f"lm_train: K1 was not launched: {launches}")
+        check(launches["fused_lookup"] >= lookups,
+              f"lm_train: {lookups} token-store lookups but {launches['fused_lookup']} K1 "
+              f"launches")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # (b) the token store: lossless, the loader's batches, K1 on its head.
+    t0 = time.perf_counter()
+    got = store.get(np.arange(LM_CORPUS))
+    get_s = time.perf_counter() - t0
+    check(np.array_equal(got, corpus), "lm_train: the token store is not lossless")
+    via_store = TokenBatchLoader(lcfg, store=store)
+    via_raw = TokenBatchLoader(lcfg, tokens=corpus)
+    for k in range(S2):
+        check(np.array_equal(via_store.batch_for_step(k)["tokens"],
+                             via_raw.batch_for_step(k)["tokens"]),
+              f"lm_train: the store's batch differs from the raw one at step {k}")
+    eng = store.store.engine
+    spec = store.store.spec
+    flat, _ = eng._entry(spec.tasks).flat()
+    pos, words = eng._device_pos_ops(), eng._device_words()
+    cap = store.store.encoder.capacity
+    base_pad = ops._round_up(spec.base, ops.LANE)
+    card = spec.card_map["token"]
+    near, differ, differ2, k1_k2 = 0, 0, 0, 0
+    for lo in range(0, LM_CORPUS, LM_K1_CHUNK):
+        keys = np.arange(lo, min(lo + LM_K1_CHUNK, LM_CORPUS), dtype=np.int64)
+        n = keys.size
+        kt = eng._keys_dev(keys, ops._round_up(n, 256))
+        k1 = fm.fused_lookup_call(kt, pos, words, flat, spec, 256, base_pad, cap)
+        want = ref.fused_lookup(kt, pos, words, flat, spec, cap)
+        # The digits K1 makes, on every padded row (K2 takes whole tiles),
+        # and the plain side's top-two margin per row.
+        k = kt.long()
+        digits = torch.stack([((k % int(md)) // int(dv)) % spec.base
+                              for md, dv in pos.tolist()], dim=1).to(torch.int32).contiguous()
+        top = torch.topk(ref._forward_flat(flat, spec, digits[:n], emit_codes=False)[0][:, :card],
+                         2, dim=1).values
+        tie = (top[:, 0] - top[:, 1]) < MARGIN_TOL
+        diff = k1[0][:n, 0] != want[0][:n, 0]
+        check(not bool((diff & ~tie).any()),
+              "lm_train: K1's token codes differ from the plain version on a clear row")
+        check(torch.equal(k1[1][:n], want[1][:n]), "lm_train: K1's existence bits differ")
+        # K2 on the same digits: the build finds T_aux through it.
+        k2 = fm.fused_mlp_call(digits, flat, spec, 256, base_pad, ops.card_pads(spec), True)
+        diff2 = k2[:n, 0] != ref.fused_mlp(digits, flat, spec, True)[:n, 0]
+        check(not bool((diff2 & ~tie).any()),
+              "lm_train: K2's token codes differ from the plain version on a clear row")
+        near += int(tie.sum())
+        differ += int(diff.sum())
+        differ2 += int(diff2.sum())
+        k1_k2 += int((k1[0][:n, 0] != k2[:n, 0]).sum())
+    # K1 on one chunk of this model, against its plain version and bound.
+    kt = eng._keys_dev(np.arange(LM_K1_CHUNK, dtype=np.int64), LM_K1_CHUNK)
+    bound = mlp_bound(spec, LM_K1_CHUNK, 4, 4 * len(spec.tasks) + 4,
+                      int(words.numel()) * 4 + int(pos.numel()) * 4)
+    k1_ms = time_ms(lambda: fm.fused_lookup_call(kt, pos, words, flat, spec, 256, base_pad, cap))
+    plain_ms = time_ms(lambda: ref.fused_lookup(kt, pos, words, flat, spec, cap), reps=5)
+    rec["token_store"] = {
+        "epochs": epochs, "train_steps": store_steps, "last_train_loss": last_loss,
+        "build_s": timer.seconds["build"], "train_s": timer.seconds["train"],
+        "tier_stats_at_path_end": build_stats, "plan": fm.tile_plan(spec).describe(),
+        "spec": {"width": spec.width, "shared": list(spec.shared),
+                 "private": list(spec.private_map["token"]), "card": card},
+        "memorized_fraction": store.memorized_fraction(), "aux_rows": store.store.aux.num_rows,
+        "compression_ratio": store.compression_ratio(), "size_bytes": store.size_bytes(),
+        "lookups_on_path": lookups, "get_all_s": get_s, "loader_steps_checked": S2,
+        "k1_vs_plain": {"keys": LM_CORPUS, "differing_rows": differ, "near_tie_rows": near,
+                        "margin_tol": MARGIN_TOL},
+        "k2_vs_plain": {"keys": LM_CORPUS, "differing_rows": differ2, "near_tie_rows": near,
+                        "margin_tol": MARGIN_TOL, "k1_k2_differing_rows": k1_k2},
+        "k1_chunk": {"keys": LM_K1_CHUNK, "ms": k1_ms, "plain_ms": plain_ms, **bound},
+    }
+    del store
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec, launches
 
 
 def baseline_table(name: str, seed: int):
@@ -2419,7 +2818,17 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
           f"lm_serve launched a DeepMapping kernel: {paths['lm_serve']}")
     emit("lm_serve", nvidia_smi=smi, **lm_rec, launches=paths["lm_serve"])
 
-    # ---------------------------------------------------- 7. mhas_search
+    # ------------------------------------------------------- 7. lm_train
+    # The LM substrate's training path (lm_train_phase): the launcher over
+    # the token store, its batches looked up through K1, then resumed
+    # from its checkpoint; the train step at a realistic shape.  The
+    # path's counts are read inside the phase, before K1 is held against
+    # its plain version on the store's model.
+    reset_launches()
+    lm_train_rec, paths["lm_train"] = lm_train_phase(dev, args.seed, read_launches)
+    emit("lm_train", nvidia_smi=smi, **lm_train_rec, launches=paths["lm_train"])
+
+    # ---------------------------------------------------- 8. mhas_search
     # MHAS (Algorithm 2) over this table at the paper's layer widths
     # (PAPER_MHAS, its iterations cut), then the searched store built
     # from the chosen child and looked up: its launches count on a path
@@ -2446,7 +2855,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     emit("mhas_search", **search_rec, launches=paths["mhas_search"],
          kernels_vs_plain=search_kernels, device_bytes_held_after=held)
 
-    # ---------------------------------------------------------- 8. train
+    # ---------------------------------------------------------- 9. train
     # build() with no weights trains (the paper's TrainConfig), then
     # evaluates T_aux through K2 and serves through K1.  The trainer is
     # wrapped only to read its loss history and time it.
@@ -2553,7 +2962,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
         check(len(got_k) == want and "bitvector_kernel" in got_k[-1],
               f"bitvector_test on {label} keys ran {got_k}, not {want} kernel(s) ending in K3")
 
-    # -------------------------------------------------------- 9. persist
+    # ------------------------------------------------------- 10. persist
     # The trained store saved by the port in the reference's v2 layout
     # and reopened through repro_torch.open, onto the card: every SF1
     # key plus the absent and out-of-capacity keys answer byte for byte
@@ -2612,7 +3021,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          aux_codec=loaded.config.codec + ("" if storage.HAVE_ZSTD else " (zlib fallback)"),
          integrity_error=integrity_error, launches=persist_launches)
 
-    # --------------------------------------------------------- 10. query
+    # --------------------------------------------------------- 11. query
     # Plans through store.query() on the reopened SF1 store, each held
     # against a numpy oracle over the source table and byte for byte
     # against pushdown(False); the where plans again on the main store
@@ -2837,7 +3246,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          point_keys=int(qk.size), range=[lo, hi], launches=query_launches)
     del loaded
 
-    # ------------------------------------------------------- 11. cluster
+    # ------------------------------------------------------- 12. cluster
     # The reference's default cluster (ClusterConfig(): 4 range shards,
     # the 4 that benchmarks/bench_shards.py runs) over the SF1 orders
     # table, every shard trained on the card with the train phase's
@@ -3050,6 +3459,9 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     check_live("after the mutations", cluster)
     dirty = cluster.dirty_shards()
     check(dirty == [last], f"cluster: dirty shards {dirty}, expected [{last}]")
+    # The retrain's epochs capped again, at CL_RETRAIN_EPOCHS (cut for time).
+    cluster.shards[last].config = dataclasses.replace(
+        cl_cfg, train=dataclasses.replace(cl_cfg.train, epochs=CL_RETRAIN_EPOCHS))
     before = read_launches()
     retrained, cl_retrain_s = hooked(cluster.retrain)
     after = read_launches()
@@ -3236,6 +3648,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
                                        "build_workers": 1,
                                        "retrain_after_modified_bytes": 1,
                                        "epochs_cap": CL_EPOCHS,
+                                       "retrain_epochs_cap": CL_RETRAIN_EPOCHS,
                                        "epochs_uncapped": train_cfg.train.epochs},
          boundaries=cluster.partitioner.boundaries.tolist(), build_s=cl_build_s,
          default_build=thr_rec,
@@ -3263,7 +3676,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          launches=cl_launches)
     del rep, part, ab, rres, pres, fres, ores, qres, live_want
 
-    # --------------------------------------------------------- 12. serve
+    # --------------------------------------------------------- 13. serve
     # The batched LookupServer over the train phase's single store and
     # the cluster (as the cluster phase left it), then the launcher; host
     # times here are taken before the baseline pool starts.
@@ -3286,7 +3699,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     cluster.close()
     del cluster
 
-    # The baseline pool (phase 15's stores) starts here, beside the
+    # The baseline pool (phase 16's stores) starts here, beside the
     # correlated and multikey phases, on all cores but two: a training
     # step there is launch-bound on one core.  Spawned workers, never
     # forked from this process, which holds a CUDA context.
@@ -3301,7 +3714,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     bl_jobs = [bl_pool.apply_async(baseline_job, (t, f, args.seed, str(bl_dir)))
                for t, f in BASELINE_JOBS]
 
-    # ---------------------------------------------------- 13. correlated
+    # ---------------------------------------------------- 14. correlated
     # TPC-DS customer_demographics at its full 1,920,800 rows (every
     # column a periodic function of the key) under the reference
     # benchmark's DM-R config, built with repro_torch.build on the card:
@@ -3437,7 +3850,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          build_launches=cd_build_launches, launches=cd_launches,
          kernels_vs_plain=cd_kernels)
 
-    # ------------------------------------------------------ 14. multikey
+    # ------------------------------------------------------ 15. multikey
     # MultiKeyMapping over a customer_demographics prefix under DM-R, two
     # key choices: (key, credit rating) packs into int32 and serves
     # through K1; (key, purchase estimate) packs past int32 (raw integers
@@ -3516,10 +3929,10 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          build_launches=mk_build_launches, size_bytes=mk.size_bytes(), launches=mk_launches)
     del mk
 
-    # ----------------------------------------------------- 15. baselines
+    # ----------------------------------------------------- 16. baselines
     # Every AB/HB factory on customer_demographics and on SF1 orders,
     # built, checked, saved, bit-flipped and reopened by the pool started
-    # before phase 13; the hash stores' reopened lookups are timed in
+    # before phase 14; the hash stores' reopened lookups are timed in
     # their workers (about 15,000-40,000 keys/s, a core's work either
     # way).  Each array store's saved file is reopened here through
     # repro_torch.open and its lookup timed as the DeepMapping stores'
@@ -3607,7 +4020,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          deepmapping=dm_rows, launches=paths["baselines"])
     del cd_store
 
-    # --------------------------------------------------------- 16. times
+    # --------------------------------------------------------- 17. times
     n = 65536
     kp = rng.choice(table.keys, n).astype(np.int32)
     kt = torch.from_numpy(kp).to(dev)

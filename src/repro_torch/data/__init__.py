@@ -1,6 +1,6 @@
-"""Synthetic table generators: copies of the reference's ``repro.data``
-workload generators (paper §V-A1).  The LM substrate's ``tokens`` and
-``loader`` modules are not part of the port yet."""
+"""Dataset substrate: copies of the reference's ``repro.data`` workload
+generators (paper §V-A1), plus the LM training pipeline's token store
+(``tokens``) and stateless batch loader (``loader``)."""
 
 from repro_torch.data.datasets import (  # noqa: F401
     cropland_like,

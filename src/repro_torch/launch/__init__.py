@@ -1,4 +1,4 @@
 """Launch layer of the port: the serving entry point
-(``python -m repro_torch.launch.serve``).  The reference's mesh
-factory, dry-run entry point and training launcher belong to the LM
-substrate and are not ported yet (ROADMAP item M12)."""
+(``python -m repro_torch.launch.serve``) and the training launcher
+(``python -m repro_torch.launch.train``).  The reference's mesh
+factory and dry-run entry point wait for ROADMAP item M12d."""

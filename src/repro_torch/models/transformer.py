@@ -144,9 +144,13 @@ def _block_apply(
     return x + f, new_cache
 
 
-def _index(tree, g: int):
-    """Group ``g`` of a stacked tree (views, no copies)."""
-    return _map_tree(tree, lambda t: t[g])
+def _unstack(tree, groups: int) -> List:
+    """The ``groups`` groups of a stacked tree, as views (no copies): one
+    ``unbind`` a leaf, whose backward stacks the groups' gradients in one
+    op, where indexing each group would add a zero-filled gradient of the
+    whole stack per group."""
+    per_leaf = _map_tree(tree, lambda t: t.unbind(0))
+    return [_map_tree(per_leaf, lambda ts, g=g: ts[g]) for g in range(groups)]
 
 
 # --------------------------------------------------------------------------
@@ -261,9 +265,10 @@ class DecoderLM:
 
             if seg.groups > 0:
                 group_caches = []
-                for g in range(seg.groups):
-                    gp = _index(seg_params["groups"], g)
-                    gc = _index(seg_cache["groups"], g) if seg_cache is not None else None
+                gps = _unstack(seg_params["groups"], seg.groups)
+                gcs = (_unstack(seg_cache["groups"], seg.groups) if seg_cache is not None
+                       else [None] * seg.groups)
+                for gp, gc in zip(gps, gcs):
                     if remat:
                         x, outs = torch.utils.checkpoint.checkpoint(
                             group_body, x, gp, gc, use_reentrant=False)
@@ -320,3 +325,11 @@ class DecoderLM:
         )
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self._logits(params, x), {"layers": new_caches, "len": idx + 1}
+
+
+def decoder_for(cfg: ModelConfig) -> DecoderLM:
+    """The decoder of ``cfg``; the encoder-decoder LM waits for M12c."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder LM is not ported yet (ROADMAP item M12c)")
+    return DecoderLM(cfg)

@@ -19,20 +19,13 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import DecoderLM
 from repro_torch.models.config import ModelConfig
-
-
-def _decoder(cfg: ModelConfig) -> DecoderLM:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder LM is not ported yet (ROADMAP item M12c)")
-    return DecoderLM(cfg)
+from repro_torch.models.transformer import decoder_for
 
 
 def make_prefill_step(cfg: ModelConfig, device: DeviceLike = None) -> Callable:
     """(params, {"tokens": (B,S), "patch_embeds"?: (B,P,d)}) -> logits (B,S,V)."""
-    model = _decoder(cfg)
+    model = decoder_for(cfg)
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -49,7 +42,7 @@ def make_prefill_step(cfg: ModelConfig, device: DeviceLike = None) -> Callable:
 
 def make_decode_step(cfg: ModelConfig, device: DeviceLike = None) -> Callable:
     """(params, cache, tokens (B,1)) -> (logits (B,1,V), new cache)."""
-    model = _decoder(cfg)
+    model = decoder_for(cfg)
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -61,4 +54,4 @@ def make_decode_step(cfg: ModelConfig, device: DeviceLike = None) -> Callable:
 
 def make_cache_factory(cfg: ModelConfig, device: DeviceLike = None) -> Callable:
     """(batch, max_len) -> a zeroed cache on ``device``."""
-    return functools.partial(_decoder(cfg).init_cache, device=resolve_device(device))
+    return functools.partial(decoder_for(cfg).init_cache, device=resolve_device(device))

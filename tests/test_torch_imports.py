@@ -203,6 +203,9 @@ def test_module_scan_covers_this_slices_modules():
             "configs/tinyllama_1_1b.py", "configs/qwen2_7b.py", "configs/granite3_2b.py",
             "configs/gemma3_1b.py", "configs/phi3_vision_4_2b.py",
             "serve/serve_step.py"} <= names
+    assert {"train/train_step.py", "train/checkpoint.py", "train/fault_tolerance.py",
+            "train/compression.py", "data/tokens.py", "data/loader.py",
+            "launch/train.py"} <= names
 
 
 def test_chip_smoke_imports_none_of_the_forbidden_modules():
