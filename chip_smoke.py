@@ -73,7 +73,24 @@ on them against its plain PyTorch version on the card:
                 a 1,024-token fp32 prefill, banded on its windowed layers,
                 against the windowed decode of the same tokens within
                 2e-3;
-7. lm_train   — the LM substrate's training path (ROADMAP M12b): the
+7. lm_recurrent — the RWKV6 and RG-LRU blocks (ROADMAP M12c-1) through the
+                same serve steps, no DeepMapping kernel on the path:
+                rwkv6-7b (32 RWKV6 layers, d_model 4,096, 64 heads of 64,
+                d_ff 14,336, vocab 65,536) and recurrentgemma-2b (26
+                layers, 18 RG-LRU and 8 local attention with window
+                2,048; d_model 2,560, 10 heads over 1 kv head of 256,
+                d_ff 7,680, vocab 256,000, tied) at full width and depth,
+                weights from ``DecoderLM.init`` on the card in fp32, their
+                count against the reference tree's (8,054,640,640 and
+                2,894,481,920; the estimate beside it); 64 tokens of 2
+                sequences decoded from an empty state against their
+                prefill within 2e-3; the weights cast to the dtypes the
+                bf16 config's own init gives (RG-LRU's ``a_param`` stays
+                fp32): the prefill of 4 x 512 and 4 x 1,024 tokens
+                (tokens/s, argmaxes against fp32's on 75% and 95% of the
+                clear rows), a greedy decode of 64 steps at batch 4 (ms a
+                step), the state's bytes a sequence, peak device memory;
+8. lm_train   — the LM substrate's training path (ROADMAP M12b): the
                 launcher ``repro_torch.launch.train.main`` on tinyllama-1.1b
                 at full width and depth in bf16 (its batch of 8 x 65
                 tokens, AdamW with warmup-cosine and clip 1.0, remat) with
@@ -94,7 +111,7 @@ on them against its plain PyTorch version on the card:
                 launcher's batches through it equal to the raw ones, and
                 K1 and K2 on its model against their plain versions on
                 every position (codes equal but on near ties, counted);
-8. mhas_search — MHAS (Algorithm 2, ``run_mhas``) over the same table
+9. mhas_search — MHAS (Algorithm 2, ``run_mhas``) over the same table
                 under the port's ``PAPER_MHAS`` at the paper's layer
                 sizes (100 to 2,000, depth 2), batches (16,384 and 2,048),
                 8 samples a controller update and learning rates, its
@@ -110,7 +127,7 @@ on them against its plain PyTorch version on the card:
                 build and at lookup, and the path's launches equal to
                 those tiers'; then K1 and K2 on its model against their
                 plain versions, and the bank freed;
-9. train      — the same table built with no weights: the store trains
+10. train      — the same table built with no weights: the store trains
                 at the paper's width and ``TrainConfig`` (batch 16,384,
                 up to 200 epochs), evaluates T_aux through K2 and answers
                 every key losslessly through K1; a few training steps
@@ -118,14 +135,14 @@ on them against its plain PyTorch version on the card:
                 session: one CUDA kernel a call on contiguous keys, and
                 the call's split (word upload, kernels, wall; its own
                 JSON line, ``bitvector_profile``);
-10. persist   — the trained store saved by the port in the reference's
+11. persist   — the trained store saved by the port in the reference's
                 v2 layout and reopened through ``repro_torch.open``:
                 every SF1 key plus 100,000 absent and 2,000
                 out-of-capacity keys answer byte for byte as before the
                 save and losslessly; a bit flipped in ``vexist.bin``
                 raises ``IntegrityError``; save, load and first-lookup
                 seconds and each artifact's bytes;
-11. query      — nine plans through ``store.query()`` on the reopened
+12. query      — nine plans through ``store.query()`` on the reopened
                 store (a projected ``where_keys`` on 65,536 keys, a
                 ``scan`` with a ``where`` conjunction on two heads, a
                 ``where_range``, a count-only ``group_by``, a self-join
@@ -139,11 +156,11 @@ on them against its plain PyTorch version on the card:
                 main store after its mutations.  K1 must run with
                 predicate tables and every ``where`` plan must report
                 ``kernel_filtered``;
-12. cluster   — the reference's default cluster (``ClusterConfig()``:
+13. cluster   — the reference's default cluster (``ClusterConfig()``:
                 4 range shards) over the same SF1 table, every shard
                 trained on the card with the train phase's config through
                 ``repro_torch.build(..., cluster=...)``, one shard at a
-                time and for at most 120 epochs (``CL_EPOCHS``; both cut
+                time and for at most 80 epochs (``CL_EPOCHS``; both cut
                 for time),
                 then served under the default config; the default
                 build (shards on four threads at once) over a
@@ -165,7 +182,7 @@ on them against its plain PyTorch version on the card:
                 ``aux.msgpack`` refused, then quarantined with the healthy
                 shards serving.  Every plan without an injected fault
                 retries nothing;
-13. serve     — the batched ``LookupServer`` over the train phase's
+14. serve     — the batched ``LookupServer`` over the train phase's
                 store and the cluster (after its mutations): 2,048
                 requests of 1 to 4,096 keys (log-uniform), Zipf-skewed
                 (s = 1.1) over the present keys with 5% absent and 1%
@@ -187,7 +204,7 @@ on them against its plain PyTorch version on the card:
                 reopens the save and serves again; every request found,
                 the store lossless.  The path's launches are read before
                 the checks that look keys up outside the servers;
-14. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
+15. correlated — TPC-DS ``customer_demographics`` at its full 1,920,800
                 rows under the reference benchmark's DM-R config,
                 trained on the card through ``repro_torch.build``: every
                 key lossless, absent and out-of-capacity keys absent; the
@@ -198,7 +215,7 @@ on them against its plain PyTorch version on the card:
                 through ``repro_torch.open`` with the same answers; K1
                 (with and without predicate tables) and K2 on the store's
                 model and residue features against their plain versions;
-15. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
+16. multikey  — ``MultiKeyMapping`` over a 240,000-row prefix of it,
                 under DM-R (20 epochs, cut for time), with two key
                 choices: (key, credit rating),
                 whose packed domain fits int32 (K1), and (key, purchase
@@ -206,7 +223,7 @@ on them against its plain PyTorch version on the card:
                 lossless on every row, unknown combinations absent; each
                 choice's kernel on its store's model against its plain
                 version;
-16. baselines — every AB/HB factory of the paper (§V-A3) on
+17. baselines — every AB/HB factory of the paper (§V-A3) on
                 ``customer_demographics`` (HBC-L on its first 960,400
                 rows, cut for time) and on SF1 ``orders``: exact on
                 100,000 present and 50,000 absent keys, saved, reopened
@@ -216,11 +233,11 @@ on them against its plain PyTorch version on the card:
                 stores probed the same way.  Baselines are host code:
                 they build in a pool of spawned workers (never forked
                 from the process that holds the CUDA context), one per
-                core but two, started before phase 14 and running beside
-                phases 14 and 15; a hash store's reopened lookup is timed
+                core but two, started before phase 15 and running beside
+                phases 15 and 16; a hash store's reopened lookup is timed
                 in its worker, an array store's in the main process once
                 at most one worker is left (and again alone if one was);
-17. times     — kernel and plain-version times with CUDA events, the
+18. times     — kernel and plain-version times with CUDA events, the
                 kernels' bounds, K3's two instantiations at 65,536 keys
                 and at its largest call (one launch, a run of 100, L2
                 flushed) beside the launch floor, K1/K2 under each plan
@@ -230,17 +247,17 @@ on them against its plain PyTorch version on the card:
 
 Each kernel's launches are counted on every path that drives the port
 (the MHAS children of phase 2 through K2 as path ``mhas`` and through
-their engines as ``mhas_engine``, and phases 3 to 16, the search
+their engines as ``mhas_engine``, and phases 3 to 17, the search
 and its store as ``mhas_search``), with
 the counts set to 0 just before each path and read just after; K1's
 launches that carried predicate tables are counted apart.  The launches
 made to compare a kernel with its plain version (the rest of phase 2,
-and in phases 7, 8, 14 and 15 after their counts are read) and those of
-phase 17 do not count.  The LM serving path of phase 6 launches none of
-the three kernels (the reference's LM path reaches no Pallas kernel);
-its counts, all 0, are read as path ``lm_serve``.  The LM training path
-of phase 7 launches K1 through the token store and K2 in its build (path
-``lm_train``).
+and in phases 8, 9, 15 and 16 after their counts are read) and those of
+phase 18 do not count.  The LM serving paths of phases 6 and 7 launch
+none of the three kernels (the reference's LM path reaches no Pallas
+kernel); their counts, all 0, are read as paths ``lm_serve`` and
+``lm_recurrent``.  The LM training path of phase 8 launches K1 through
+the token store and K2 in its build (path ``lm_train``).
 Each phase prints one JSON line with its seconds (``phase_s``); any
 failed check raises (non-zero exit).  The last lines are the kernel summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -345,12 +362,13 @@ LAUNCH_REQUESTS = 100
 CL_THREADED_ROWS, CL_THREADED_EPOCHS = 187_500, 20
 #: Epochs at most of the SF1 cluster's shard trainings (its one-thread
 #: build; its retrain is capped again at CL_RETRAIN_EPOCHS): PAPER_STORE's
-#: 200 capped, cut for the smoke's
-#: time to pay for the lm_serve phase.  Uncapped, the shards stop early
-#: after 118-144 epochs, so some still stop early under this cap.  Every
-#: shard stays lossless whatever its epochs, since T_aux corrects the
-#: deployed model.
-CL_EPOCHS = 120
+#: 200 capped, cut for the smoke's time to pay for the lm_serve phase
+#: (120) and then for the lm_recurrent phase (80; each epoch of the four
+#: shards, about 92 steps, took 0.9-1.4 s on an H100, and each epoch cut
+#: from the cap saved 0.56-0.86 s of their training).  Uncapped, the
+#: shards stop early after 118-144 epochs.  Every shard stays lossless
+#: whatever its epochs, since T_aux corrects the deployed model.
+CL_EPOCHS = 80
 #: The kernels phase's MHAS check: SF1 keys run through every child, the
 #: children the controller samples (beside the four fixed ones), and the
 #: tolerance of the masked forward against K2 on the extracted child: a
@@ -389,6 +407,28 @@ LM_WINDOW_LAYERS, LM_WINDOW_TOKENS = 8, 1024
 #: equal the fp32 run's on at least LM_AGREE of the rows whose fp32
 #: top-two margin is at least LM_MARGIN.
 LM_TOL, LM_MARGIN, LM_AGREE = 2e-3, 0.1, 0.99
+#: The lm_recurrent phase (the RWKV6 and RG-LRU blocks, ROADMAP M12c-1):
+#: both archs at full width and depth.  The reference tree's parameter
+#: count of each (``jax.eval_shape`` of the reference's init; its
+#: ``param_count_estimate`` undercounts both), and the bf16 prefill's
+#: (sequences, tokens).  The fp32 check runs LM_CHECK, the greedy decode
+#: LM_DECODE in a cache of LM_DECODE[0] slots (inside recurrentgemma's
+#: 2,048-token window), under LM_TOL, and LM_AGREE at LM_REC_MARGIN.
+LM_REC_ARCHS = ("rwkv6-7b", "recurrentgemma-2b")
+LM_REC_PARAMS = {"rwkv6-7b": 8_054_640_640, "recurrentgemma-2b": 2_894_481_920}
+LM_REC_PREFILL = {"rwkv6-7b": (4, 512), "recurrentgemma-2b": (4, 1024)}
+#: The fp32 top-two margin from which a row is clear in the bf16 argmax
+#: check of both recurrent archs (LM_AGREE of those rows must agree):
+#: wider than tinyllama's LM_MARGIN, because bf16 moves more of their
+#: near-tied argmaxes at random weights.  On an H100 (seed 0) rwkv6-7b's
+#: bf16 prefill agrees with its fp32 one on 91.4% of the rows with margin
+#: >= 0.1 and 99.3% of those >= 0.25, recurrentgemma-2b's on 97.7% and
+#: 100%.  At d_model 512 on the CPU (``tools/lm_bf16_sensitivity.py``,
+#: seed 0) the reference's own bf16 forward of rwkv agrees with its fp32
+#: one on 82.7% of the rows with margin >= 0.1 (the port's on 82.1%).
+#: The share at LM_MARGIN and the one from rounding only the weights to
+#: bf16 are recorded beside it.
+LM_REC_MARGIN = 0.25
 #: The lm_train phase (LM training and the token store, ROADMAP M12b):
 #: the training launcher on tinyllama-1.1b at full width and depth under
 #: its own defaults (bf16, 8 sequences of 64 + 1 tokens, AdamW with
@@ -1233,6 +1273,144 @@ def mhas_search_phase(table, absent, out_cap, dev, seed: int, read_launches) -> 
     return rec, launches, store
 
 
+def lm_sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def lm_timed(dev, fn):
+    """``(fn(), seconds)``: the host clock between two synchronizes."""
+    lm_sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    lm_sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def lm_decode_against(dev, params, cfg, toks, full):
+    """Decode ``toks`` one at a time from an empty cache through
+    ``make_cache_factory`` and ``make_decode_step``; per step the largest
+    excess over the tolerance, max(|got - want| - (LM_TOL + LM_TOL |want|))
+    (<= 0 where close), and difference against ``full`` (on the device,
+    read once at the end)."""
+    import torch
+
+    from repro_torch.serve.serve_step import make_cache_factory, make_decode_step
+
+    B, S = toks.shape
+    step = make_decode_step(cfg, device=dev)
+    cache = make_cache_factory(cfg, device=dev)(B, S)
+    exc, diff = [], []
+    for t in range(S):
+        lg, cache = step(params, cache, toks[:, t:t + 1])
+        got, want = lg[:, 0].float(), full[:, t]
+        exc.append(((got - want).abs() - LM_TOL * (1 + want.abs())).amax())
+        diff.append((got - want).abs().amax())
+    check(int(cache["len"]) == S, f"{cfg.name}: the cache's len is not {S}")
+    return torch.stack(exc).cpu(), torch.stack(diff).cpu()
+
+
+def lm_fp32_argmax(dev, prefill32, params, prompts):
+    """The fp32 prefill of ``prompts``: its argmaxes and top-two margins
+    (the logits themselves are freed) and its seconds."""
+    import torch
+
+    lg32, s = lm_timed(dev, lambda: prefill32(params, {"tokens": prompts}))
+    top2 = torch.topk(lg32, 2, dim=-1).values
+    margin32 = top2[..., 0] - top2[..., 1]
+    arg32 = lg32.argmax(dim=-1)
+    return arg32, margin32, s
+
+
+def argmax_agreement(arg, arg32, margin32) -> dict:
+    """{margin: [equal share, rows]} of ``arg`` against the fp32 argmaxes,
+    over the rows whose fp32 top-two margin is at least LM_MARGIN,
+    LM_REC_MARGIN, 0.5 and 1.0."""
+    out = {}
+    for m in (LM_MARGIN, LM_REC_MARGIN, 0.5, 1.0):
+        clear = margin32 >= m
+        n = int(clear.sum())
+        out[m] = [float((arg == arg32)[clear].float().mean()) if n else None, n]
+    return out
+
+
+def lm_bf16_serve(dev, cfg16, params16, prompts, arg32, margin32, cache_slots: int,
+                  margin: float = LM_MARGIN):
+    """The bf16 half of ``lm_serve`` and ``lm_recurrent``, on weights
+    already in the config's dtypes: the prefill of ``prompts`` timed four
+    times (the first warms cuBLAS up and is not counted; tokens/s from
+    the median of the other three), every logit finite and the argmaxes
+    equal to the fp32 prefill's on LM_AGREE of the rows with an fp32
+    top-two margin of ``margin`` or more; a greedy decode of LM_DECODE
+    steps and sequences in a ``cache_slots``-slot cache timed after a
+    4-step warm-up (ms a step); the peak device memory from the call on.
+    Returns the record and the decode's last cache."""
+    import torch
+
+    from repro_torch.core.model import _leaves
+    from repro_torch.serve.serve_step import (
+        make_cache_factory, make_decode_step, make_prefill_step,
+    )
+
+    name = cfg16.name
+    lm_sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem_before = torch.cuda.memory_allocated()
+    Bp, Sp = prompts.shape
+    prefill16 = make_prefill_step(cfg16, device=dev)
+    pre16_runs = []
+    for _ in range(4):
+        lg16, s16 = lm_timed(dev, lambda: prefill16(params16, {"tokens": prompts}))
+        pre16_runs.append(s16)
+    check(lg16.dtype == torch.bfloat16 and tuple(lg16.shape) == (Bp, Sp, cfg16.vocab_size),
+          f"{name}: bf16 prefill gave {lg16.dtype} {tuple(lg16.shape)}")
+    check(bool(torch.isfinite(lg16).all()), f"{name}: a bf16 prefill logit is not finite")
+    by_margin = argmax_agreement(lg16.argmax(dim=-1), arg32, margin32)
+    agree, n_clear = by_margin[margin]
+    del lg16
+    check(n_clear > 0 and agree >= LM_AGREE,
+          f"{name}: bf16 argmax equals fp32 on {agree} of {n_clear} rows with margin >= "
+          f"{margin}, not {LM_AGREE}")
+    Sd, Bd = LM_DECODE
+    step16 = make_decode_step(cfg16, device=dev)
+    caches = make_cache_factory(cfg16, device=dev)
+
+    def greedy(steps):
+        cache = caches(Bd, cache_slots)
+        tok = prompts[:Bd, :1]
+        out, finite = [], []
+        for _ in range(steps):
+            lg, cache = step16(params16, cache, tok)
+            finite.append(torch.isfinite(lg).all())
+            tok = lg[:, -1].argmax(dim=-1, keepdim=True)
+            out.append(tok)
+        return torch.cat(out, dim=1), torch.stack(finite), cache
+
+    lm_timed(dev, lambda: greedy(4))  # warm-up
+    (gen_toks, finite, cache16), dec16_s = lm_timed(dev, lambda: greedy(Sd))
+    check(bool(finite.all()), f"{name}: a bf16 decode logit is not finite")
+    check(int(cache16["len"]) == Sd and int(gen_toks.max()) < cfg16.vocab_size,
+          f"{name}: the greedy decode's cache or tokens are wrong")
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    pre16_s = statistics.median(pre16_runs[1:])
+    return {
+        "weight_bytes": sum(t.numel() * t.element_size() for t in _leaves(params16)),
+        "prefill": {"sequences": Bp, "tokens": Sp, "s": pre16_s, "s_runs": pre16_runs,
+                    "tokens_per_s": Bp * Sp / pre16_s},
+        "argmax_vs_fp32": {"margin": margin, "rows": n_clear,
+                           "of_rows": Bp * Sp, "equal_share": agree, "need": LM_AGREE,
+                           "by_margin": by_margin},
+        "decode": {"steps": Sd, "sequences": Bd, "cache_slots": cache_slots, "s": dec16_s,
+                   "ms_per_step": dec16_s / Sd * 1e3, "tokens_per_s": Bd * Sd / dec16_s},
+        "peak_device_bytes": peak,
+        "peak_device_bytes_over_start": peak - mem_before if dev.type == "cuda" else 0,
+    }, cache16
+
+
 def lm_serve_phase(dev, seed: int) -> dict:
     """The LM substrate's serving path (``make_prefill_step``,
     ``make_decode_step``, ``make_cache_factory``) on the dense decoders:
@@ -1261,43 +1439,11 @@ def lm_serve_phase(dev, seed: int) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.core.model import _leaves, _map_tree
     from repro_torch.models import DecoderLM
-    from repro_torch.serve.serve_step import (
-        make_cache_factory, make_decode_step, make_prefill_step,
-    )
+    from repro_torch.serve.serve_step import make_prefill_step
 
     check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
           "lm_serve: bf16 products would be reduced in bf16 (smoke() turns that off)")
     gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
-    def timed(fn):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        return out, time.perf_counter() - t0
-
-    def excess(got, want):
-        """max(|got - want| - (LM_TOL + LM_TOL |want|)): <= 0 where close."""
-        return ((got.float() - want).abs() - LM_TOL * (1 + want.abs())).amax()
-
-    def decode_against(params, cfg, toks, full):
-        """Decode ``toks`` one at a time from an empty cache; per step the
-        largest excess over the tolerance and difference against ``full``
-        (on the device, read once at the end)."""
-        B, S = toks.shape
-        step = make_decode_step(cfg, device=dev)
-        cache = make_cache_factory(cfg, device=dev)(B, S)
-        exc, diff = [], []
-        for t in range(S):
-            lg, cache = step(params, cache, toks[:, t:t + 1])
-            exc.append(excess(lg[:, 0], full[:, t]))
-            diff.append((lg[:, 0].float() - full[:, t]).abs().amax())
-        check(int(cache["len"]) == S, f"{cfg.name}: the cache's len is not {S}")
-        return torch.stack(exc).cpu(), torch.stack(diff).cpu()
 
     rec: dict = {"bf16_reduced_precision_reduction": False}
 
@@ -1305,7 +1451,7 @@ def lm_serve_phase(dev, seed: int) -> dict:
     arch = get_arch(LM_ARCH)
     cfg32 = dataclasses.replace(arch.config, dtype="float32")
     model = DecoderLM(cfg32)
-    params, init_s = timed(lambda: model.init(seed, device=dev))
+    params, init_s = lm_timed(dev, lambda: model.init(seed, device=dev))
     n_params = sum(t.numel() for t in _leaves(params))
     est = cfg32.param_count_estimate()
     norms = (2 * cfg32.num_layers + 1) * cfg32.d_model
@@ -1316,8 +1462,9 @@ def lm_serve_phase(dev, seed: int) -> dict:
     B, S = LM_CHECK
     toks = torch.randint(0, cfg32.vocab_size, (B, S), generator=gen, device=dev)
     prefill32 = make_prefill_step(cfg32, device=dev)
-    full, _ = timed(lambda: prefill32(params, {"tokens": toks}).float())
-    (exc, diff), dec32_s = timed(lambda: decode_against(params, cfg32, toks, full))
+    full, _ = lm_timed(dev, lambda: prefill32(params, {"tokens": toks}).float())
+    (exc, diff), dec32_s = lm_timed(
+        dev, lambda: lm_decode_against(dev, params, cfg32, toks, full))
     check(bool((exc <= 0).all()), f"{LM_ARCH}: fp32 decode differs from prefill past "
           f"{LM_TOL} at step {int(exc.argmax())} (max abs {float(diff.max())})")
     rec["tinyllama"] = {
@@ -1335,67 +1482,14 @@ def lm_serve_phase(dev, seed: int) -> dict:
     # (b) the same weights in bf16: prefill and greedy decode, timed.
     Bp, Sp = LM_PREFILL
     prompts = torch.randint(0, cfg32.vocab_size, (Bp, Sp), generator=gen, device=dev)
-    lg32, pre32_s = timed(lambda: prefill32(params, {"tokens": prompts}))
-    top2 = torch.topk(lg32, 2, dim=-1).values
-    margin32 = top2[..., 0] - top2[..., 1]
-    arg32 = lg32.argmax(dim=-1)
-    del lg32, top2
+    arg32, margin32, pre32_s = lm_fp32_argmax(dev, prefill32, params, prompts)
     cfg16 = arch.config
     check(cfg16.dtype == "bfloat16", f"{LM_ARCH}'s config is not bf16")
     params16 = _map_tree(params, lambda t: t.to(torch.bfloat16))
     del params
-    sync()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        mem_before = torch.cuda.memory_allocated()
-    prefill16 = make_prefill_step(cfg16, device=dev)
-    pre16_runs = []
-    for _ in range(4):  # the first run warms cuBLAS up and is not counted
-        lg16, s16 = timed(lambda: prefill16(params16, {"tokens": prompts}))
-        pre16_runs.append(s16)
-    check(lg16.dtype == torch.bfloat16 and tuple(lg16.shape) == (Bp, Sp, cfg16.vocab_size),
-          f"{LM_ARCH}: bf16 prefill gave {lg16.dtype} {tuple(lg16.shape)}")
-    check(bool(torch.isfinite(lg16).all()), f"{LM_ARCH}: a bf16 prefill logit is not finite")
-    clear = margin32 >= LM_MARGIN
-    agree = float((lg16.argmax(dim=-1) == arg32)[clear].float().mean())
-    n_clear = int(clear.sum())
-    check(n_clear > 0 and agree >= LM_AGREE,
-          f"{LM_ARCH}: bf16 argmax equals fp32 on {agree} of {n_clear} clear rows")
-    del lg16
-    Sd, Bd = LM_DECODE
-    step16 = make_decode_step(cfg16, device=dev)
-    caches = make_cache_factory(cfg16, device=dev)
-
-    def greedy(steps):
-        cache = caches(Bd, LM_CACHE)
-        tok = prompts[:Bd, :1]
-        out, finite = [], []
-        for _ in range(steps):
-            lg, cache = step16(params16, cache, tok)
-            finite.append(torch.isfinite(lg).all())
-            tok = lg[:, -1].argmax(dim=-1, keepdim=True)
-            out.append(tok)
-        return torch.cat(out, dim=1), torch.stack(finite), cache
-
-    timed(lambda: greedy(4))  # warm-up
-    (gen_toks, finite, cache16), dec16_s = timed(lambda: greedy(Sd))
-    check(bool(finite.all()), f"{LM_ARCH}: a bf16 decode logit is not finite")
-    check(int(cache16["len"]) == Sd and int(gen_toks.max()) < cfg16.vocab_size,
-          f"{LM_ARCH}: the greedy decode's cache or tokens are wrong")
-    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
-    pre16_s = statistics.median(pre16_runs[1:])
-    rec["tinyllama"]["bf16"] = {
-        "weight_bytes": sum(t.numel() * t.element_size() for t in _leaves(params16)),
-        "prefill": {"sequences": Bp, "tokens": Sp, "s": pre16_s, "s_runs": pre16_runs,
-                    "tokens_per_s": Bp * Sp / pre16_s, "fp32_s": pre32_s},
-        "argmax_vs_fp32": {"margin": LM_MARGIN, "rows": n_clear,
-                           "of_rows": Bp * Sp, "equal_share": agree, "need": LM_AGREE},
-        "decode": {"steps": Sd, "sequences": Bd, "cache_slots": LM_CACHE, "s": dec16_s,
-                   "ms_per_step": dec16_s / Sd * 1e3, "tokens_per_s": Bd * Sd / dec16_s},
-        "peak_device_bytes": peak,
-        "peak_device_bytes_over_start": peak - mem_before if dev.type == "cuda" else 0,
-    }
+    bf16, cache16 = lm_bf16_serve(dev, cfg16, params16, prompts, arg32, margin32, LM_CACHE)
+    bf16["prefill"]["fp32_s"] = pre32_s
+    rec["tinyllama"]["bf16"] = bf16
     del params16, cache16, prompts, margin32, arg32
 
     # (c) gemma3-1b at full width, depth cut: banded prefill vs windowed decode.
@@ -1408,11 +1502,12 @@ def lm_serve_phase(dev, seed: int) -> dict:
           and LM_WINDOW_TOKENS % window == 0 and LM_WINDOW_TOKENS > window,
           f"{LM_WINDOW_ARCH}: the cut is not one group and a 2-layer remainder over a "
           f"banded prefill")
-    gparams, ginit_s = timed(lambda: gmodel.init(seed, device=dev))
+    gparams, ginit_s = lm_timed(dev, lambda: gmodel.init(seed, device=dev))
     gtoks = torch.randint(0, gcfg.vocab_size, (1, LM_WINDOW_TOKENS), generator=gen, device=dev)
-    gfull, gpre_s = timed(lambda: make_prefill_step(gcfg, device=dev)(
+    gfull, gpre_s = lm_timed(dev, lambda: make_prefill_step(gcfg, device=dev)(
         gparams, {"tokens": gtoks}).float())
-    (gexc, gdiff), gdec_s = timed(lambda: decode_against(gparams, gcfg, gtoks, gfull))
+    (gexc, gdiff), gdec_s = lm_timed(
+        dev, lambda: lm_decode_against(dev, gparams, gcfg, gtoks, gfull))
     check(bool((gexc <= 0).all()), f"{LM_WINDOW_ARCH}: windowed decode differs from the "
           f"banded prefill past {LM_TOL} at step {int(gexc.argmax())}")
     rec["gemma3"] = {
@@ -1431,6 +1526,170 @@ def lm_serve_phase(dev, seed: int) -> dict:
     del gparams, gfull
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return rec
+
+
+def own_dtypes(cfg) -> list:
+    """The dtype of every leaf ``cfg``'s own ``DecoderLM.init`` makes, in
+    ``_leaves`` order: read off the init of a twin of ``cfg`` on the CPU,
+    with its depth, block plan and dtype and tiny widths (a leaf's dtype
+    does not depend on widths)."""
+    import torch
+
+    from repro_torch.core.model import _leaves
+    from repro_torch.models import DecoderLM
+
+    twin = dataclasses.replace(
+        cfg, d_model=16, num_heads=2, num_kv_heads=2 if cfg.num_kv_heads == cfg.num_heads else 1,
+        head_dim=8, d_ff=16, vocab_size=16, rglru_dim=16 if cfg.rglru_dim else 0)
+    return [t.dtype for t in _leaves(DecoderLM(twin).init(0, device=torch.device("cpu")))]
+
+
+def leaf_paths(tree, path=()):
+    """``(path, leaf)`` of every leaf, in ``_leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_paths(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def state_bytes(cfg, cache) -> dict:
+    """A cache's bytes per sequence: the recurrent states (RWKV's wkv and
+    token shifts, RG-LRU's h and conv rows), and the attention layers'
+    k and v per cached token; each beside the same count from the
+    config's shapes."""
+    B = None
+    rec_bytes = kv_bytes = 0
+    for path, t in leaf_paths(cache["layers"]):
+        stacked = path[1] == "groups"
+        batch = t.shape[1] if stacked else t.shape[0]
+        B = batch if B is None else B
+        check(batch == B, f"{cfg.name}: a cache leaf's batch is {batch}, not {B}")
+        if path[-1] in ("k", "v"):
+            T = t.shape[2] if stacked else t.shape[1]
+            kv_bytes += t.numel() * t.element_size() // (B * T)
+        else:
+            rec_bytes += t.numel() * t.element_size() // B
+    size = 2 if cfg.dtype == "bfloat16" else 4
+    kinds = cfg.layer_blocks
+    d, H = cfg.d_model, cfg.num_heads
+    rd, cw = cfg.rglru_dim or d, cfg.conv_width
+    want_rec = size * (kinds.count("rwkv") * (H * (d // H) ** 2 + 2 * d)
+                       + kinds.count("rglru") * (rd + (cw - 1) * rd))
+    want_kv = size * kinds.count("attn") * 2 * cfg.num_kv_heads * cfg.head_dim
+    check(rec_bytes == want_rec and kv_bytes == want_kv,
+          f"{cfg.name}: state {rec_bytes} B and kv {kv_bytes} B a token against the shapes' "
+          f"{want_rec} and {want_kv}")
+    return {"recurrent_state_bytes_per_sequence": rec_bytes,
+            "kv_bytes_per_sequence_token": kv_bytes}
+
+
+def lm_recurrent_phase(dev, seed: int) -> dict:
+    """The RWKV6 and RG-LRU blocks (ROADMAP M12c-1) through the serving
+    path (``make_prefill_step``, ``make_decode_step``,
+    ``make_cache_factory``): each of LM_REC_ARCHS at full width and depth,
+
+    (a) weights from ``DecoderLM.init`` on the card in fp32, their count
+        against the reference tree's (LM_REC_PARAMS; the reference's
+        ``param_count_estimate`` undercounts both archs and is reported
+        beside it); LM_CHECK tokens decoded one step at a time from an
+        empty state, held against the prefill of the same tokens within
+        LM_TOL; the fp32 prefill of LM_REC_PREFILL tokens, of which only
+        the argmaxes and top-two margins are kept;
+    (b) the same weights cast, leaf by leaf, to the dtypes the bf16
+        config's own init gives (RG-LRU's ``a_param`` stays fp32), the
+        fp32 tree freed; the fp32 prefill of the same prompts on those
+        rounded weights, whose argmaxes against the first ones show how
+        far rounding the weights alone moves them (recorded, not
+        checked); the bf16 prefill timed, its argmaxes equal to the fp32
+        ones on LM_AGREE of the rows with an fp32 margin of LM_REC_MARGIN
+        or more, a greedy decode of LM_DECODE steps and sequences timed
+        (recurrentgemma's inside its 2,048-token window), the cache's
+        bytes per sequence and the peak device memory (``lm_bf16_serve``).
+
+    bf16 products accumulate in fp32 and TF32 stays off, as ``smoke()``
+    sets both.  Prompts are drawn from a generator seeded with ``seed``.
+    Returns the record of the phase's JSON line."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.model import _leaves, _map_tree, _with_leaves
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          "lm_recurrent: bf16 products would be reduced in bf16 (smoke() turns that off)")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rec: dict = {"bf16_reduced_precision_reduction": False}
+    for arch_id in LM_REC_ARCHS:
+        cfg16 = get_arch(arch_id).config
+        check(cfg16.dtype == "bfloat16", f"{arch_id}'s config is not bf16")
+        cfg32 = dataclasses.replace(cfg16, dtype="float32")
+        model = DecoderLM(cfg32)
+
+        # (a) fp32: the parameter count, decode against prefill.
+        params, init_s = lm_timed(dev, lambda: model.init(seed, device=dev))
+        n_params = sum(t.numel() for t in _leaves(params))
+        check(n_params == LM_REC_PARAMS[arch_id],
+              f"{arch_id}: {n_params} parameters, not the reference tree's "
+              f"{LM_REC_PARAMS[arch_id]}")
+        check(all(t.device.type == dev.type for t in _leaves(params)),
+              f"{arch_id}: a weight is not on {dev}")
+        B, S = LM_CHECK
+        toks = torch.randint(0, cfg32.vocab_size, (B, S), generator=gen, device=dev)
+        prefill32 = make_prefill_step(cfg32, device=dev)
+        full, _ = lm_timed(dev, lambda: prefill32(params, {"tokens": toks}).float())
+        (exc, diff), dec32_s = lm_timed(
+            dev, lambda: lm_decode_against(dev, params, cfg32, toks, full))
+        check(bool((exc <= 0).all()), f"{arch_id}: fp32 decode differs from prefill past "
+              f"{LM_TOL} at step {int(exc.argmax())} (max abs {float(diff.max())})")
+        del full
+        Bp, Sp = LM_REC_PREFILL[arch_id]
+        prompts = torch.randint(0, cfg32.vocab_size, (Bp, Sp), generator=gen, device=dev)
+        arg32, margin32, pre32_s = lm_fp32_argmax(dev, prefill32, params, prompts)
+
+        # (b) bf16 in the reference's dtypes: prefill and greedy decode, timed.
+        dtypes = own_dtypes(cfg16)
+        params16, cast_s = lm_timed(dev, lambda: _with_leaves(params, [
+            t.to(d) for t, d in zip(_leaves(params), dtypes, strict=True)]))
+        params = None
+        # The model's own sensitivity: fp32 on the bf16-rounded weights.
+        rounded = _map_tree(params16, lambda t: t.float())
+        lg, control_s = lm_timed(dev, lambda: prefill32(rounded, {"tokens": prompts}))
+        control = argmax_agreement(lg.argmax(dim=-1), arg32, margin32)
+        del rounded, lg
+        fp32_leaves = ["/".join(map(str, path)) for path, t in leaf_paths(params16)
+                       if t.dtype == torch.float32]
+        n_rglru = sum((seg.pattern + seg.remainder).count("rglru") for seg in model.segments)
+        check([t.dtype for t in _leaves(params16)] == dtypes
+              and len(fp32_leaves) == n_rglru
+              and all(p.endswith("/attn/a_param") for p in fp32_leaves),
+              f"{arch_id}: the bf16 tree's fp32 leaves are {fp32_leaves}")
+        Sd, Bd = LM_DECODE
+        bf16, cache16 = lm_bf16_serve(dev, cfg16, params16, prompts, arg32, margin32, Sd,
+                                      margin=LM_REC_MARGIN)
+        bf16["prefill"]["fp32_s"] = pre32_s
+        rec[arch_id] = {
+            "config": {k: getattr(cfg16, k) for k in (
+                "name", "num_layers", "block_pattern", "window_pattern", "d_model",
+                "num_heads", "num_kv_heads", "head_dim", "d_ff", "vocab_size", "rglru_dim",
+                "conv_width", "tie_embeddings")},
+            "params": n_params, "param_count_estimate": cfg32.param_count_estimate(),
+            "init_s": init_s, "cast_s": cast_s, "fp32_leaves_in_bf16_tree": fp32_leaves,
+            "fp32_on_bf16_weights_vs_fp32": {"by_margin": control, "s": control_s},
+            "fp32_decode_vs_prefill": {"sequences": B, "tokens": S,
+                                       "max_abs_diff": float(diff.max()), "tol": LM_TOL,
+                                       "decode_s": dec32_s,
+                                       "decode_ms_per_step": dec32_s / S * 1e3},
+            "bf16": bf16, **state_bytes(cfg16, cache16),
+        }
+        del params16, cache16, prompts, margin32, arg32
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     return rec
 
 
@@ -2818,7 +3077,19 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
           f"lm_serve launched a DeepMapping kernel: {paths['lm_serve']}")
     emit("lm_serve", nvidia_smi=smi, **lm_rec, launches=paths["lm_serve"])
 
-    # ------------------------------------------------------- 7. lm_train
+    # --------------------------------------------------- 7. lm_recurrent
+    # The RWKV6 and RG-LRU blocks through the serve steps
+    # (lm_recurrent_phase): rwkv6-7b and recurrentgemma-2b at full width
+    # and depth; no DeepMapping kernel lies on this path either, so its
+    # counts must all be 0.  Its generator is its own.
+    reset_launches()
+    rec_rec = lm_recurrent_phase(dev, args.seed)
+    paths["lm_recurrent"] = read_launches()
+    check(not any(paths["lm_recurrent"].values()),
+          f"lm_recurrent launched a DeepMapping kernel: {paths['lm_recurrent']}")
+    emit("lm_recurrent", nvidia_smi=smi, **rec_rec, launches=paths["lm_recurrent"])
+
+    # ------------------------------------------------------- 8. lm_train
     # The LM substrate's training path (lm_train_phase): the launcher over
     # the token store, its batches looked up through K1, then resumed
     # from its checkpoint; the train step at a realistic shape.  The
@@ -2828,7 +3099,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     lm_train_rec, paths["lm_train"] = lm_train_phase(dev, args.seed, read_launches)
     emit("lm_train", nvidia_smi=smi, **lm_train_rec, launches=paths["lm_train"])
 
-    # ---------------------------------------------------- 8. mhas_search
+    # ---------------------------------------------------- 9. mhas_search
     # MHAS (Algorithm 2) over this table at the paper's layer widths
     # (PAPER_MHAS, its iterations cut), then the searched store built
     # from the chosen child and looked up: its launches count on a path
@@ -2855,7 +3126,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     emit("mhas_search", **search_rec, launches=paths["mhas_search"],
          kernels_vs_plain=search_kernels, device_bytes_held_after=held)
 
-    # ---------------------------------------------------------- 9. train
+    # --------------------------------------------------------- 10. train
     # build() with no weights trains (the paper's TrainConfig), then
     # evaluates T_aux through K2 and serves through K1.  The trainer is
     # wrapped only to read its loss history and time it.
@@ -2962,7 +3233,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
         check(len(got_k) == want and "bitvector_kernel" in got_k[-1],
               f"bitvector_test on {label} keys ran {got_k}, not {want} kernel(s) ending in K3")
 
-    # ------------------------------------------------------- 10. persist
+    # ------------------------------------------------------- 11. persist
     # The trained store saved by the port in the reference's v2 layout
     # and reopened through repro_torch.open, onto the card: every SF1
     # key plus the absent and out-of-capacity keys answer byte for byte
@@ -3021,7 +3292,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          aux_codec=loaded.config.codec + ("" if storage.HAVE_ZSTD else " (zlib fallback)"),
          integrity_error=integrity_error, launches=persist_launches)
 
-    # --------------------------------------------------------- 11. query
+    # --------------------------------------------------------- 12. query
     # Plans through store.query() on the reopened SF1 store, each held
     # against a numpy oracle over the source table and byte for byte
     # against pushdown(False); the where plans again on the main store
@@ -3246,7 +3517,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          point_keys=int(qk.size), range=[lo, hi], launches=query_launches)
     del loaded
 
-    # ------------------------------------------------------- 12. cluster
+    # ------------------------------------------------------- 13. cluster
     # The reference's default cluster (ClusterConfig(): 4 range shards,
     # the 4 that benchmarks/bench_shards.py runs) over the SF1 orders
     # table, every shard trained on the card with the train phase's
@@ -3676,7 +3947,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          launches=cl_launches)
     del rep, part, ab, rres, pres, fres, ores, qres, live_want
 
-    # --------------------------------------------------------- 13. serve
+    # --------------------------------------------------------- 14. serve
     # The batched LookupServer over the train phase's single store and
     # the cluster (as the cluster phase left it), then the launcher; host
     # times here are taken before the baseline pool starts.
@@ -3699,7 +3970,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     cluster.close()
     del cluster
 
-    # The baseline pool (phase 16's stores) starts here, beside the
+    # The baseline pool (phase 17's stores) starts here, beside the
     # correlated and multikey phases, on all cores but two: a training
     # step there is launch-bound on one core.  Spawned workers, never
     # forked from this process, which holds a CUDA context.
@@ -3714,7 +3985,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
     bl_jobs = [bl_pool.apply_async(baseline_job, (t, f, args.seed, str(bl_dir)))
                for t, f in BASELINE_JOBS]
 
-    # ---------------------------------------------------- 14. correlated
+    # ---------------------------------------------------- 15. correlated
     # TPC-DS customer_demographics at its full 1,920,800 rows (every
     # column a periodic function of the key) under the reference
     # benchmark's DM-R config, built with repro_torch.build on the card:
@@ -3850,7 +4121,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          build_launches=cd_build_launches, launches=cd_launches,
          kernels_vs_plain=cd_kernels)
 
-    # ------------------------------------------------------ 15. multikey
+    # ------------------------------------------------------ 16. multikey
     # MultiKeyMapping over a customer_demographics prefix under DM-R, two
     # key choices: (key, credit rating) packs into int32 and serves
     # through K1; (key, purchase estimate) packs past int32 (raw integers
@@ -3929,10 +4200,10 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          build_launches=mk_build_launches, size_bytes=mk.size_bytes(), launches=mk_launches)
     del mk
 
-    # ----------------------------------------------------- 16. baselines
+    # ----------------------------------------------------- 17. baselines
     # Every AB/HB factory on customer_demographics and on SF1 orders,
     # built, checked, saved, bit-flipped and reopened by the pool started
-    # before phase 14; the hash stores' reopened lookups are timed in
+    # before phase 15; the hash stores' reopened lookups are timed in
     # their workers (about 15,000-40,000 keys/s, a core's work either
     # way).  Each array store's saved file is reopened here through
     # repro_torch.open and its lookup timed as the DeepMapping stores'
@@ -4020,7 +4291,7 @@ def smoke(args, cleanup: contextlib.ExitStack) -> int:
          deepmapping=dm_rows, launches=paths["baselines"])
     del cd_store
 
-    # --------------------------------------------------------- 17. times
+    # --------------------------------------------------------- 18. times
     n = 65536
     kp = rng.choice(table.keys, n).astype(np.int32)
     kt = torch.from_numpy(kp).to(dev)

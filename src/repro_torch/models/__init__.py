@@ -1,10 +1,11 @@
-"""Model substrate: the LM architectures' dense GQA decoders.
+"""Model substrate: the LM architectures' decoders.
 
 The port of ``repro.models``: ``ModelConfig`` (every field of the
 reference's) and ``DecoderLM`` for decoders of ``"attn"`` blocks with a
-dense FFN, in plain PyTorch (params as trees of tensors, group layers
-stacked on a leading dimension).  ``EncDecLM``, MLA + MoE, RWKV, RG-LRU
-and the modality frontends wait for ROADMAP item M12c.
+dense FFN, RWKV6 (``"rwkv"``) and RG-LRU (``"rglru"``) blocks
+(:mod:`.ssm`), in plain PyTorch (params as trees of tensors, group
+layers stacked on a leading dimension).  MLA + MoE wait for ROADMAP item
+M12c-2; ``EncDecLM`` and the modality frontends for M12c-3.
 """
 
 from repro_torch.models.config import ModelConfig  # noqa: F401

@@ -1,15 +1,20 @@
-"""Decoder-only LM assembly: the dense GQA decoders.
+"""Decoder-only LM assembly: dense GQA decoders, RWKV6 and RG-LRU hybrids.
 
 The port of ``repro.models.transformer`` for blocks of kind ``"attn"``
-with a dense FFN.  A MoE FFN, MLA and the ``rwkv`` and ``rglru`` kinds
-raise ``NotImplementedError``: they wait for ROADMAP item M12c.
+with a dense FFN, ``"rwkv"`` (time-mix and channel-mix,
+:mod:`repro_torch.models.ssm`) and ``"rglru"`` (the recurrence and a
+gated MLP).  A MoE FFN and MLA raise ``NotImplementedError``: they wait
+for ROADMAP item M12c.
 
 Depth is organized into SEGMENTS of repeated block-pattern GROUPS, as in
 the reference: gemma3's group is six layers (5 windowed + 1 global), so
-each position's window is static.  A segment's group params are stacked
-on a leading group dimension (the reference's ``lax.scan`` layout); the
+each position's window is static; recurrentgemma's is
+``("rglru", "rglru", "attn")``.  A segment's group params are stacked on
+a leading group dimension (the reference's ``lax.scan`` layout); the
 port walks the groups in a Python loop, then the remainder layers.
-KV caches are stacked per group the same way.
+Caches are stacked per group the same way: KV caches for ``"attn"``,
+``{"wkv", "x_prev", "x_prev_ffn"}`` for ``"rwkv"`` and ``{"h", "conv"}``
+for ``"rglru"``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from repro_torch.core.model import _map_tree
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 
@@ -86,37 +92,41 @@ def plan_segments(cfg: ModelConfig) -> List[Segment]:
 # --------------------------------------------------------------------------
 
 
-def _require_dense(cfg: ModelConfig, kind: str, moe: bool) -> None:
-    """Raise for the block kinds this slice does not port."""
+def _require_ported(cfg: ModelConfig, kind: str, moe: bool) -> None:
+    """Raise for the block kinds this port does not run yet."""
     if kind not in ("attn", "rwkv", "rglru"):
         raise ValueError(kind)
-    if kind != "attn":
-        what = f"the {kind!r} block"
-    elif moe:
-        what = "a MoE FFN"
-    elif cfg.use_mla:
-        what = "MLA attention"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet (ROADMAP item M12c); "
-        "repro_torch runs dense GQA decoders")
+    if kind == "attn" and (moe or cfg.use_mla):
+        what = "a MoE FFN" if moe else "MLA attention"
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is not ported yet (ROADMAP item M12c); "
+            "repro_torch runs dense GQA, RWKV6 and RG-LRU decoders")
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, moe: bool) -> Dict:
-    _require_dense(cfg, kind, moe)
+    _require_ported(cfg, kind, moe)
     dev = gen.device
-    return {
-        "ln1": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev),
-        "ln2": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev),
-        "attn": A.gqa_init(gen, cfg),
-        "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype),
-    }
+    p: Dict = {"ln1": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev),
+               "ln2": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev)}
+    if kind == "attn":
+        p["attn"] = A.gqa_init(gen, cfg)
+        p["ffn"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype)
+    elif kind == "rwkv":
+        p["attn"] = S.rwkv_init(gen, cfg)
+        p["ffn"] = S.rwkv_channel_init(gen, cfg)
+    else:
+        p["attn"] = S.rglru_init(gen, cfg)
+        p["ffn"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype)
+    return p
 
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  device: torch.device) -> Dict:
-    _require_dense(cfg, kind, False)
+    _require_ported(cfg, kind, False)
+    if kind == "rwkv":
+        return S.rwkv_init_state(cfg, batch, device=device)
+    if kind == "rglru":
+        return S.rglru_init_state(cfg, batch, device=device)
     c = A.gqa_init_cache(cfg, batch, max_len, device=device)
     c.pop("len")
     return c
@@ -133,14 +143,29 @@ def _block_apply(
     cache: Optional[Dict],
     cache_len,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    _require_dense(cfg, kind, moe)
+    _require_ported(cfg, kind, moe)
     h_in = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    c = dict(cache, len=cache_len) if cache is not None else None
-    h, new_cache = A.gqa_apply(p["attn"], cfg, h_in, positions, window=window, cache=c)
-    if new_cache is not None:
-        new_cache.pop("len")
-    x = x + h
-    f = L.mlp(p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    new_cache = None
+    if kind == "attn":
+        c = dict(cache, len=cache_len) if cache is not None else None
+        h, new_cache = A.gqa_apply(p["attn"], cfg, h_in, positions, window=window, cache=c)
+        if new_cache is not None:
+            new_cache.pop("len")
+        x = x + h
+        f = L.mlp(p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    elif kind == "rwkv":
+        st = {"wkv": cache["wkv"], "x_prev": cache["x_prev"]} if cache is not None else None
+        h, st2 = S.rwkv_apply(p["attn"], cfg, h_in, state=st)
+        x = x + h
+        f_in = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        xp = cache["x_prev_ffn"] if cache is not None else None
+        f, xp2 = S.rwkv_channel_apply(p["ffn"], cfg, f_in, x_prev=xp)
+        if cache is not None:
+            new_cache = {"wkv": st2["wkv"], "x_prev": st2["x_prev"], "x_prev_ffn": xp2}
+    else:
+        h, new_cache = S.rglru_apply(p["attn"], cfg, h_in, state=cache)
+        x = x + h
+        f = L.mlp(p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x + f, new_cache
 
 
@@ -170,7 +195,7 @@ class DecoderLM:
         self.segments = plan_segments(cfg)
         for seg in self.segments:
             for kind, moe in zip(seg.pattern + seg.remainder, seg.moe + seg.rem_moe):
-                _require_dense(cfg, kind, moe)
+                _require_ported(cfg, kind, moe)
 
     @property
     def padded_vocab(self) -> int:
@@ -290,8 +315,9 @@ class DecoderLM:
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, device: DeviceLike = None) -> Dict:
-        """Zeroed KV caches on ``device`` (CUDA by default), in the
-        config's dtype: ``{"layers": [...], "len": 0-d int32}``."""
+        """Zeroed KV caches and recurrent states on ``device`` (CUDA by
+        default), in the config's dtype: ``{"layers": [...], "len": 0-d
+        int32}``."""
         cfg = self.cfg
         dev = resolve_device(device)
         caches = []

@@ -4,10 +4,11 @@ The port of ``repro.serve.serve_step`` for the decoder-only archs.
 ``make_prefill_step`` runs the full forward over the prompt (logits for
 every position — cache materialization is the decode path's first
 iteration in this framework).  ``make_decode_step`` runs one-token
-decode against a KV cache of a given length; ``make_cache_factory``
-makes that cache.  Each factory takes ``device=`` (CUDA by default,
-raising without a GPU); its step moves the batch's tokens there and
-runs without autograd.  The encoder-decoder branch waits for ROADMAP
+decode against a cache of a given length (KV caches for attention
+blocks, carried states for RWKV6 and RG-LRU blocks);
+``make_cache_factory`` makes that cache.  Each factory takes
+``device=`` (CUDA by default, raising without a GPU); its step moves
+the batch's tokens there and runs without autograd.  The encoder-decoder branch waits for ROADMAP
 item M12c.
 """
 

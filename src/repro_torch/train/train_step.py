@@ -1,6 +1,7 @@
 """Train step factory for the LM architectures.
 
-The port of ``repro.train.train_step`` for the dense decoders.
+The port of ``repro.train.train_step`` for the decoder-only archs
+(dense GQA, RWKV6 and RG-LRU blocks).
 ``make_train_step(cfg, optimizer, microbatches)`` returns a
 ``(state, batch) -> (state, metrics)`` function that runs eagerly on the
 device the state is on: next-token cross-entropy through

@@ -206,6 +206,7 @@ def test_module_scan_covers_this_slices_modules():
     assert {"train/train_step.py", "train/checkpoint.py", "train/fault_tolerance.py",
             "train/compression.py", "data/tokens.py", "data/loader.py",
             "launch/train.py"} <= names
+    assert {"models/ssm.py", "configs/rwkv6_7b.py", "configs/recurrentgemma_2b.py"} <= names
 
 
 def test_chip_smoke_imports_none_of_the_forbidden_modules():

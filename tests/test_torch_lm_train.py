@@ -51,6 +51,8 @@ GRAD_CASES = [
     ("tinyllama-1.1b", "float32", "full", False),
     ("phi-3-vision-4.2b", "float32", "none", True),
     ("tinyllama-1.1b", "bfloat16", "none", False),
+    ("rwkv6-7b", "float32", "none", False),
+    ("recurrentgemma-2b", "float32", "full", False),
 ]
 #: The same, with the microbatch count, for the whole-step cases.
 STEP_CASES = [
@@ -60,8 +62,7 @@ STEP_CASES = [
     ("tinyllama-1.1b", "bfloat16", "none", False, 1),
 ]
 #: The registered archs whose blocks wait for ROADMAP item M12c.
-UNPORTED_ARCHS = ("deepseek-v3-671b", "llama4-scout-17b-a16e", "recurrentgemma-2b", "rwkv6-7b",
-                  "seamless-m4t-medium")
+UNPORTED_ARCHS = ("deepseek-v3-671b", "llama4-scout-17b-a16e", "seamless-m4t-medium")
 BATCH, SEQ, PATCHES = 4, 16, 4
 LR = 1e-2
 
